@@ -1,0 +1,77 @@
+"""Plain torch versions of every kernel (the ``ref.py`` contract).
+
+They delegate to :mod:`repro_torch.core`, the same code the rest of the
+port uses, and run on any device.  The CPU tests run them against the JAX
+package; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+Packed words are int32 bit views throughout.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import lattice as L
+from repro_torch.core import rotation as R
+
+
+def fwht_ref(x: torch.Tensor) -> torch.Tensor:
+    """Normalized Walsh-Hadamard transform over the last axis."""
+    return R.fwht_torch(x)
+
+
+def expand_sides(s, n: int, bucket: Optional[int] = None, device=None
+                 ) -> torch.Tensor:
+    """Sides as the plain math broadcasts them: a scalar stays a scalar
+    tensor, per-coordinate sides stay as they are, and per-bucket sides
+    (..., nb) with ``bucket`` are repeated out to (..., n)."""
+    sa = torch.as_tensor(s, dtype=torch.float32, device=device)
+    if bucket is None or sa.dim() == 0:
+        return sa
+    return torch.repeat_interleave(sa, int(bucket), dim=-1)[..., :n]
+
+
+def lattice_encode_ref(x: torch.Tensor, u: torch.Tensor, s, *, q: int,
+                       bits: int, return_coords: bool = False,
+                       anchor: Optional[torch.Tensor] = None,
+                       bucket: Optional[int] = None):
+    """Packed mod-q colors of round((x - anchor)/s - u); s is scalar,
+    per-coordinate, or per-bucket with ``bucket``; anchor is optional."""
+    xv = x.to(torch.float32) - anchor if anchor is not None else x
+    k = L.encode_coords(xv, expand_sides(s, x.shape[-1], bucket, x.device), u)
+    words = L.pack_colors(L.color_of(k, q), bits)
+    return (words, k) if return_coords else words
+
+
+def lattice_decode_batched_ref(words: torch.Tensor, anchor: torch.Tensor,
+                               u: torch.Tensor, s, *, q: int, bits: int,
+                               n: int, mode: str = "coords",
+                               ref: Optional[torch.Tensor] = None,
+                               bucket: Optional[int] = None) -> torch.Tensor:
+    """(senders, n_words) payloads vs one (n,) anchor -> (senders, n)."""
+    colors = L.unpack_colors(words, n, bits)            # (senders, n)
+    sa = expand_sides(s, n, bucket, anchor.device)
+    av = anchor.to(torch.float32) - ref if ref is not None else anchor
+    k = L.decode_coords(colors, av[None], sa, u[None], q=q)
+    if mode == "coords":
+        return k
+    z = L.coords_to_point(k, sa, u[None], torch.float32)
+    if ref is not None:
+        z = z + ref[None]
+    return z
+
+
+def lattice_residuals_ref(words: torch.Tensor, k0: torch.Tensor, *, q: int,
+                          bits: int, n: int) -> torch.Tensor:
+    """Centered mod-q residuals ``centered_mod(c - k0, q)`` of packed colors
+    about reference coordinates k0: the integer-only half of proximity
+    decode, so ``k0 + r`` is exactly the batched decode's coords output.
+    words: (..., n_words); k0: (n,) int32 -> (..., n) int32."""
+    colors = L.unpack_colors(words, n, bits)
+    return L.centered_mod(colors - k0.to(torch.int32), q)
+
+
+def lattice_pack_coords_ref(k: torch.Tensor, *, q: int,
+                            bits: int) -> torch.Tensor:
+    """Packed mod-q color words of int32 lattice coordinates."""
+    return L.pack_colors(L.color_of(k, q), bits)

@@ -1,0 +1,141 @@
+"""Bit-exact threefry2x32 draws: the port's counterpart of ``jax.random``.
+
+The aggregation protocol's shared randomness is part of the wire contract:
+the dither ``u``, the §5 checksum weights and the §6 Hadamard diagonal are
+all drawn from ``jax.random`` keys in the reference, and a port client's
+frames match a reference client's only if these streams match bit for bit.
+This module reproduces exactly the calls the protocol makes, in JAX's
+*partitionable* threefry mode (``jax_threefry_partitionable=True``):
+
+* ``PRNGKey(seed)`` -> the raw key pair ``(0, seed & 0xFFFFFFFF)``;
+* ``fold_in(key, data)`` -> ``threefry(key, (0, data))``;
+* ``split(key, num)`` -> ``threefry(key, (0, i))`` for ``i < num``;
+* ``bits(key, shape)`` -> element ``i`` (row-major) is ``y0 ^ y1`` of
+  ``threefry(key, (i >> 32, i & 0xFFFFFFFF))``;
+* ``uniform`` and ``rademacher`` from those bits as ``jax.random`` builds
+  them (mantissa fill, then shift and scale).
+
+A key is a pair of Python ints.  Bulk draws run on the caller's device in
+plain torch int64 masked to 32 bits (torch has no unsigned 32-bit
+arithmetic), in chunks so that no int64 temporary exceeds a few hundred MB
+whatever the draw size.  uint32 results are returned as int32 bit views.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+
+Key = tuple  # (k1, k2), each in [0, 2^32)
+_M32 = 0xFFFFFFFF
+# elements per chunk of a bulk draw: eight int64 temporaries of this size
+# stay well under a GB
+_CHUNK = 1 << 24
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Shape = Union[int, Sequence[int]]
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & _M32
+
+
+def _threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor):
+    """The 20-round Threefry-2x32 hash of count pairs (x0, x1) under key.
+
+    x0, x1: int64 tensors holding values in [0, 2^32).  Returns (y0, y1)
+    in the same form."""
+    k1, k2 = int(key[0]) & _M32, int(key[1]) & _M32
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x0 + ks[0]) & _M32
+    b = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            a = (a + b) & _M32
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + i + 1) & _M32
+    return a, b
+
+
+def _hash_pair(key: Key, hi: int, lo: int) -> Key:
+    """threefry of one count pair, on the host."""
+    y0, y1 = _threefry2x32(key, torch.tensor([hi], dtype=torch.int64),
+                           torch.tensor([lo], dtype=torch.int64))
+    return int(y0), int(y1)
+
+
+def PRNGKey(seed: int) -> Key:
+    """The raw key of an integer seed, as ``jax.random.PRNGKey`` builds it
+    with 64-bit types off: the seed's low 32 bits, behind a zero word."""
+    return (0, int(seed) & _M32)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in``: a new key from ``key`` and a uint32 datum."""
+    return _hash_pair(key, 0, int(data) & _M32)
+
+
+def split(key: Key, num: int = 2) -> "tuple[Key, ...]":
+    """``jax.random.split`` in partitionable mode: ``num`` new keys."""
+    y0, y1 = _threefry2x32(key, torch.zeros(num, dtype=torch.int64),
+                           torch.arange(num, dtype=torch.int64))
+    return tuple((int(a), int(b)) for a, b in zip(y0.tolist(), y1.tolist()))
+
+
+def _shape(shape: Shape) -> "tuple[int, ...]":
+    return (int(shape),) if isinstance(shape, int) else tuple(map(int, shape))
+
+
+def _draw(key: Key, shape: Shape, device, dtype, fn) -> torch.Tensor:
+    """Run ``fn`` over the int64 uint32 bits of a row-major draw, chunk by
+    chunk, into an output of ``dtype``."""
+    shape = _shape(shape)
+    n = math.prod(shape)
+    if n >= (1 << 32):
+        raise ValueError(f"draw of {n} elements exceeds 2^32")
+    out = torch.empty(n, dtype=dtype, device=device)
+    for c0 in range(0, n, _CHUNK):
+        c1 = min(n, c0 + _CHUNK)
+        lo = torch.arange(c0, c1, dtype=torch.int64, device=device)
+        y0, y1 = _threefry2x32(key, torch.zeros_like(lo), lo)
+        out[c0:c1] = fn(y0 ^ y1)
+    return out.reshape(shape)
+
+
+def as_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> their int32 bit view."""
+    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def bits(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int32 bit view."""
+    return _draw(key, shape, device, torch.int32, as_int32_bits)
+
+
+def _unit_floats(v: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> f32 in [0, 1): 23 random mantissa bits under the
+    exponent of 1.0, minus 1 (exact)."""
+    fb = ((v >> 9) | 0x3F800000).to(torch.int32)
+    return fb.view(torch.float32) - 1.0
+
+
+def uniform(key: Key, shape: Shape, minval: float = 0.0, maxval: float = 1.0,
+            *, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = torch.tensor(maxval, dtype=torch.float32) - lo
+    lo_d, span_d = lo.to(device), span.to(device)
+
+    def fn(v):
+        return torch.maximum(_unit_floats(v) * span_d + lo_d, lo_d)
+    return _draw(key, shape, device, torch.float32, fn)
+
+
+def rademacher(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
+    """``jax.random.rademacher(key, shape, float32)``: +1 where the
+    bernoulli(0.5) draw ``uniform < 0.5`` holds, else -1."""
+    def fn(v):
+        return torch.where(_unit_floats(v) < 0.5, 1.0, -1.0)
+    return _draw(key, shape, device, torch.float32, fn)

@@ -5,3 +5,5 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers",
+                            "cuda: needs a CUDA device; skips without one")
