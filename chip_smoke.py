@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's aggregation round on one CUDA card.
 
-    python3 chip_smoke.py            # full width: d = 277,845,504, 16 clients
+    python3 chip_smoke.py [--seed N]   # d = 277,845,504, 16 clients
 
 The port (``src/repro_torch``) is the only thing imported: no JAX and
 nothing of the JAX package.  The script
@@ -13,14 +13,15 @@ nothing of the JAX package.  The script
    coordinates (the plain versions' temporaries are too large for the
    whole shape), the timing at the full shape — and prints its time,
    bound, plain time and library-call time;
-3. runs round A: an unrotated, unanchored round of ``--clients`` clients
-   over a ``--d``-dimensional vector (the gradient of whisper-small, the
+3. runs round A: an unrotated, unanchored round of 16 clients over a
+   277,845,504-dimensional vector (the gradient of whisper-small, the
    smallest model the repo configures), q = 16, bucket = 4096, y0 = 0.25;
    the server's anchor is ``base ~ N(0,1)`` and client i sends
    ``base + 0.02 N(0,1)``, all made on the card from ``--seed``; frames
    cross as bytes; checks that every client is accepted at attempt 0 in
    exactly one batched decode launch and that the mean is within 0.51 s of
-   the exact mean in every coordinate;
+   the exact mean in every coordinate; times each phase, and the drain's
+   parts (upload, decode, epilogue);
 4. runs round B: the same clients, rotated (§6) and anchored at round A's
    mean; checks ||mean - exact||_2 <= 0.51 s sqrt(N);
 5. runs a small round (d = 2^18, 8 clients) once on the card and once on
@@ -40,6 +41,7 @@ with a nonzero code and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -55,6 +57,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 SLICE = 1 << 24                  # coordinates compared against the plain version
 FULL_D = 277_845_504             # whisper-small's parameter count
+CLIENTS = 16                     # clients per full-width round
 KERNEL_SOURCES = {
     "lattice_encode": ("src/repro_torch/kernels/csrc/lattice_encode.cu",
                        "src/repro/kernels/lattice_encode.py:70"),
@@ -118,24 +121,35 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     side = 2 * 0.25 / 15
     out = {}
 
-    # --- encode: first attempt (words + coords), per-bucket sides
+    # --- encode: first attempt (words + coords), per-bucket sides drawn at
+    # random around the round's side, so that a kernel reading another
+    # bucket's side disagrees; once without an anchor (round A) and once
+    # with one (round B)
     x = torch.randn(n_pad, generator=g, device=dev)
     u = torch.rand(n_pad, generator=g, device=dev) - 0.5
-    sides = torch.full((nb,), side, dtype=torch.float32, device=dev)
-    words, k = ops.lattice_encode(x, u, sides, q=q, return_coords=True,
-                                  bucket=bucket)
-    torch.cuda.synchronize()
+    sides = side * (0.5 + torch.rand(nb, generator=g, device=dev))
+    a = x + 0.02 * torch.randn(n_pad, generator=g, device=dev)
     L_ = min(SLICE, n_pad)
-    ww, wk = ref.lattice_encode_ref(x[:L_], u[:L_], sides[:L_ // bucket],
-                                    q=q, bits=bits, return_coords=True,
-                                    bucket=bucket)
-    check(torch.equal(words[:L_ // 8], ww) and torch.equal(k[:L_], wk),
-          "lattice_encode disagrees with its plain version")
-    err = max(max_abs_err(torch, words[:L_ // 8], ww),
-              max_abs_err(torch, k[:L_], wk))
-    del words, k, ww, wk
+    err = 0.0
+    for anc in (None, a):
+        words, k = ops.lattice_encode(x, u, sides, q=q, return_coords=True,
+                                      anchor=anc, bucket=bucket)
+        torch.cuda.synchronize()
+        ww, wk = ref.lattice_encode_ref(
+            x[:L_], u[:L_], sides[:L_ // bucket], q=q, bits=bits,
+            return_coords=True, anchor=None if anc is None else anc[:L_],
+            bucket=bucket)
+        check(torch.equal(words[:L_ // 8], ww) and torch.equal(k[:L_], wk),
+              "lattice_encode disagrees with its plain version (anchor="
+              f"{anc is not None})")
+        err = max(err, max_abs_err(torch, words[:L_ // 8], ww),
+                  max_abs_err(torch, k[:L_], wk))
+        del words, k, ww, wk
     ms = cuda_ms(torch, lambda: ops.lattice_encode(
         x, u, sides, q=q, return_coords=True, bucket=bucket))
+    ms_anchored = cuda_ms(torch, lambda: ops.lattice_encode(
+        x, u, sides, q=q, return_coords=True, anchor=a, bucket=bucket))
+    del a
 
     def plain_encode():
         for c0 in range(0, n_pad, SLICE):
@@ -146,15 +160,19 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
                                    bucket=bucket)
     plain = cuda_ms(torch, plain_encode, reps=1)
     b, by = bound(n_pad * (4 + 4 + bits / 8 + 4) + nb * 4, n_pad * 4)
+    b_anc, _ = bound(n_pad * (4 + 4 + 4 + bits / 8 + 4) + nb * 4, n_pad * 5)
     out["lattice_encode"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
                                  bound_by=by, library_ms=None,
                                  max_abs_err=err,
-                                 shape=f"N={n_pad}, q={q}, coords")
+                                 shape=f"N={n_pad}, q={q}, coords",
+                                 anchored_ms=ms_anchored,
+                                 anchored_bound_ms=b_anc)
 
-    # --- batched decode: coords mode, per-sender per-bucket sides
+    # --- batched decode: coords mode, per-sender per-bucket sides, each
+    # sender's drawn on its own around the round's side
     words = torch.randint(-(1 << 31), (1 << 31) - 1, (senders, n_pad // 8),
                           generator=g, device=dev, dtype=torch.int32)
-    s_s = torch.full((senders, nb), side, dtype=torch.float32, device=dev)
+    s_s = side * (0.5 + torch.rand((senders, nb), generator=g, device=dev))
     kd = ops.lattice_decode_batched(words, x, u, s_s, q=q, mode="coords",
                                     bucket=bucket)
     torch.cuda.synchronize()
@@ -228,6 +246,33 @@ def client_vector(torch, base, seed: int, i: int):
                                      device=base.device)
 
 
+@contextlib.contextmanager
+def drain_timers(torch, acc):
+    """While open, time (host clock, synchronized on both sides) every call
+    of the server's drain math into ``acc["drain_math"]`` and every batched
+    decode into ``acc["decode"]``; both functions are restored on exit."""
+    from repro_torch.agg import server as server_mod
+    from repro_torch.kernels import ops
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return r
+        return call
+
+    math, decode = server_mod._drain_math, ops.lattice_decode_batched
+    server_mod._drain_math = timed(math, "drain_math")
+    ops.lattice_decode_batched = timed(decode, "decode")
+    try:
+        yield
+    finally:
+        server_mod._drain_math, ops.lattice_decode_batched = math, decode
+
+
 def run_round(torch, spec, base, anchor, n_clients: int, seed: int):
     """Encode every client one at a time, frame to bytes, receive, drain,
     finalize; returns (mean, stats, exact mean (f64), per-phase seconds,
@@ -261,10 +306,17 @@ def run_round(torch, spec, base, anchor, n_clients: int, seed: int):
         del frames, r
     exact /= n_clients
     before = _build.LAUNCHES["lattice_decode_batched"]
+    split = dict(drain_math=0.0, decode=0.0)
     t0 = time.perf_counter()
-    responses = server.drain()
+    with drain_timers(torch, split):
+        responses = server.drain()
     torch.cuda.synchronize()
     t["drain"] = time.perf_counter() - t0
+    # the drain's parts: stacking the payloads and uploading them (with the
+    # little host work after the math), the decode launch, the epilogue
+    t["drain_upload_and_host"] = t["drain"] - split["drain_math"]
+    t["drain_decode"] = split["decode"]
+    t["drain_epilogue"] = split["drain_math"] - split["decode"]
     launches = _build.LAUNCHES["lattice_decode_batched"] - before
     t0 = time.perf_counter()
     mean, stats = server.finalize()
@@ -443,8 +495,6 @@ def host_costs(torch, d: int, seed: int) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--d", type=int, default=FULL_D)
-    ap.add_argument("--clients", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -485,13 +535,13 @@ def main() -> int:
                            spill_store_bytes=sum(spills))
     say("build", seconds=time.perf_counter() - t0, built=built, ptxas=ptxas)
 
-    spec = wire.RoundSpec(round_id=1, d=args.d,
+    spec = wire.RoundSpec(round_id=1, d=FULL_D,
                           cfg=QSyncConfig(q=16, bucket=4096))
-    checks = kernel_checks(torch, spec.padded, spec.cfg.bucket, args.clients,
+    checks = kernel_checks(torch, spec.padded, spec.cfg.bucket, CLIENTS,
                            args.seed)
-    counts = rounds_ab(torch, args.d, args.clients, args.seed)
+    counts = rounds_ab(torch, FULL_D, CLIENTS, args.seed)
     small_rounds(torch, args.seed)
-    host_costs(torch, args.d, args.seed)
+    host_costs(torch, FULL_D, args.seed)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

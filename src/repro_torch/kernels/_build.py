@@ -114,6 +114,18 @@ def check(err: int, kernel: str) -> None:
                            f"{err}")
 
 
+def check_lattice_shape(kernel: str, q: int, bits: int, n: int) -> None:
+    """Raise unless (q, n) is a shape the lattice kernels take: the
+    reference's kernel shapes, q a power of two with 2, 4, 8 or 16 bits per
+    color and n >= 32 coordinates."""
+    if q < 1 or q & (q - 1) or bits not in (2, 4, 8, 16):
+        raise ValueError(f"the {kernel} kernel needs q a power of two with "
+                         f"2, 4, 8 or 16 bits per color, got q={q}")
+    if n < 32:
+        raise ValueError(f"the {kernel} kernel needs n >= 32 coordinates, "
+                         f"got {n}")
+
+
 def check_tensor(t, name: str, dtype: torch.dtype, device: torch.device,
                  shape=None) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``

@@ -10,8 +10,8 @@
 // agree to rounding.
 //
 // Input and output are f32, or bf16 with f32 inside (rounded to nearest
-// even on the way out).  d is a power of two up to 32768 (the row must fit
-// the 227 KB of shared memory a block may use).
+// even on the way out).  d is a power of two in [4, 16384], the reference
+// kernel's range.
 //
 // Bound on this card: memory.  Each row is read once and written once
 // (8 B per f32 coordinate); the log2(d) adds per coordinate run from
@@ -21,8 +21,8 @@
 // with coalesced reads, each stage maps thread p to the butterfly pair
 // (j, j + h) with j = (p / h) * 2h + p % h, stages are separated by
 // __syncthreads(), and the scaled row is stored with coalesced writes.
-// Rows above 48 KB (d > 12288) need the opt-in shared-memory attribute,
-// which the launcher sets.  No allocation; the launch goes on the caller's
+// A row of 16384 f32 (64 KB) is above the default 48 KB of dynamic shared
+// memory and needs the opt-in attribute, which the launcher sets.  No allocation; the launch goes on the caller's
 // stream.
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -88,7 +88,7 @@ extern "C" int fwht_launch(const void* x, void* out, int64_t rows, int log2d,
                            float scale, int dtype, void* stream) {
   cudaGetLastError();
   if (rows <= 0) return 0;
-  if (log2d < 0 || log2d > 15) return (int)cudaErrorInvalidValue;
+  if (log2d < 2 || log2d > 14) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(x, out, rows, log2d, scale, st);
   if (dtype == 1) return launch<__nv_bfloat16>(x, out, rows, log2d, scale, st);

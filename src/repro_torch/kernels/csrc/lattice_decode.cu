@@ -8,7 +8,8 @@
 //     k_a  = round_half_even(av / s - u[c])
 //     k    = k_a + (((col - k_a + q/2) & (q-1)) - q/2)
 // and writes k (coords mode, int32) or z = (k + u[c]) * s (+ ref[c])
-// (point mode, f32) to out[i, c].
+// (point mode, f32) to out[i, c].  BITS is 2, 4, 8 or 16, the reference's
+// kernel shapes.
 //
 // Sides: s[i * s_row + (c >> s_shift)].  The server's drain passes the
 // per-sender per-bucket sidecars (S, nb) with s_row = nb and
@@ -108,7 +109,6 @@ extern "C" int lattice_decode_batched_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t uq = (uint32_t)q;
   switch (bits) {
-    case 1: launch<1>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
     case 2: launch<2>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
     case 4: launch<4>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
     case 8: launch<8>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;

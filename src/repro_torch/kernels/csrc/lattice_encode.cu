@@ -4,8 +4,9 @@
 // (_encode_kernel).  Computes, per coordinate c < n,
 //     k[c] = round_half_even((x[c] - anchor[c]) / s - u[c])      (int32)
 // and packs the mod-q colors k & (q-1) into 32-bit words, 32/BITS colors
-// per word in little-endian lanes.  Lanes past n encode color 0, as the
-// TPU kernel's zero-padded tail does.
+// per word in little-endian lanes (BITS in {2, 4, 8, 16}, the reference's
+// kernel shapes).  Lanes past n encode color 0, as the TPU kernel's
+// zero-padded tail does.
 //
 // Sides: s[c >> s_shift].  s_shift = 0 reads a per-coordinate (n,) array,
 // s_shift = log2(bucket) a per-bucket (nb,) array (so the caller never
@@ -96,7 +97,6 @@ extern "C" int lattice_encode_launch(const float* x, const float* anchor,
   const uint32_t qmask = (uint32_t)q - 1u;
   cudaStream_t st = (cudaStream_t)stream;
   switch (bits) {
-    case 1: launch<1>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
     case 2: launch<2>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
     case 4: launch<4>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
     case 8: launch<8>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;

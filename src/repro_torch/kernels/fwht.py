@@ -15,8 +15,8 @@ from repro_torch.kernels import _build
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
-# the largest row the kernel holds in shared memory (128 KB of f32)
-MAX_D = 32768
+# the reference kernel's range of row lengths (powers of two)
+MIN_D, MAX_D = 4, 16384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -28,11 +28,12 @@ def _launcher():
 
 
 def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Normalized FWHT of x (..., d) on the card; d a power of two <= MAX_D."""
+    """Normalized FWHT of x (..., d) on the card; d a power of two in
+    [MIN_D, MAX_D]."""
     d = x.shape[-1]
-    if d < 1 or d & (d - 1) or d > MAX_D:
+    if d < MIN_D or d & (d - 1) or d > MAX_D:
         raise ValueError(f"the fwht kernel needs d a power of two in "
-                         f"[1, {MAX_D}], got {d}")
+                         f"[{MIN_D}, {MAX_D}], got {d}")
     if x.dtype not in _DTYPES:
         raise ValueError(f"the fwht kernel takes f32 or bf16, got {x.dtype}")
     _build.check_tensor(x, "x", x.dtype, x.device)

@@ -45,10 +45,9 @@ def lattice_decode_batched_cuda(words: torch.Tensor, anchor: torch.Tensor,
     if mode not in ("coords", "point"):
         raise ValueError(f"mode must be 'coords' or 'point', got {mode!r}")
     bits = L.bits_for_q(q)
-    if q & (q - 1):
-        raise ValueError(f"the decode kernel needs q a power of two, got {q}")
     dev = anchor.device
     n = anchor.numel()
+    _build.check_lattice_shape("decode", q, bits, n)
     if words.dim() != 2 or words.shape[1] < L.packed_len(n, bits):
         raise ValueError(f"words of shape {tuple(words.shape)} cannot hold "
                          f"{n} coordinates at {bits} bits")

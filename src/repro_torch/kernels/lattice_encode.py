@@ -36,10 +36,9 @@ def lattice_encode_cuda(x: torch.Tensor, u: torch.Tensor, s,
     ``packed_len(n, bits)`` of them), plus the int32 coordinates (n,) when
     ``return_coords``."""
     bits = L.bits_for_q(q)
-    if q & (q - 1):
-        raise ValueError(f"the encode kernel needs q a power of two, got {q}")
     dev = x.device
     n = x.numel()
+    _build.check_lattice_shape("encode", q, bits, n)
     _build.check_tensor(x, "x", torch.float32, dev, (n,))
     _build.check_tensor(u, "u", torch.float32, dev, (n,))
     if anchor is not None:

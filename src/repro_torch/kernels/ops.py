@@ -5,12 +5,10 @@ tensor runs the plain torch version in :mod:`repro_torch.kernels.ref`; a
 CUDA tensor launches the hand-written kernel, or the call raises.  There is
 no fallback from the card to the plain version.
 
-Shape rules: the CUDA kernels take every shape the reference's Pallas
-kernels take (q a power of two with 2, 4, 8 or 16 bits, n >= 32, FWHT d a
-power of two in [4, 16384]) and more (1-bit colors, any n >= 1, FWHT d up
-to 32768), so every shape the reference routes to a kernel runs on a
-kernel here.  A shape no kernel takes (q not a power of two) raises on
-CUDA.
+Shape rules: the reference's.  The CUDA kernels take q a power of two
+with 2, 4, 8 or 16 bits per color, n >= 32, and FWHT rows of d a power of
+two in [4, 16384].  Where the reference sends any other shape to its plain
+version, a CUDA tensor of that shape raises here.
 
 ``DISPATCH_COUNTS`` keeps the reference's semantics: one count per
 batched-decode call, whichever device ran it, so a drain can be shown to

@@ -30,7 +30,7 @@ from repro_torch.kernels import ops as TK
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _specs(d=1500, bucket=256, rotate=False, y0=0.5, seed=21, round_id=4,
+def _specs(d=1000, bucket=128, rotate=False, y0=0.5, seed=21, round_id=4,
            anchor=None, **kw):
     js = Jw.RoundSpec(round_id=round_id, d=d,
                       cfg=JQ(q=16, bucket=bucket, rotate=rotate), y0=y0,
@@ -71,7 +71,7 @@ def test_client_frames_byte_identical(anchored):
 
 @pytest.mark.parametrize("anchored", [False, True])
 def test_cross_frames_publish_bitwise_equal_means(anchored):
-    d, S = 1500, 6
+    d, S = 1000, 6
     base, xs = _fleet(d, S, seed=2)
     anchor = base if anchored else None
     js, ts = _specs(d=d, anchor=anchor)
@@ -121,7 +121,7 @@ def test_chunked_drain_epilogue_matches_one_chunk(monkeypatch):
     chunks)."""
     from repro_torch.agg import server as server_mod
 
-    d, S = 1500, 5
+    d, S = 1000, 5
     base, xs = _fleet(d, S, seed=6)
     xs[4, ::7] += 2.0                       # one sender fails its checksum
     _, ts = _specs(d=d, bucket=128, y0=0.5)
@@ -206,10 +206,10 @@ def _drive_windowed(server, clients):
 
 @pytest.mark.parametrize("anchored", [False, True])
 def test_streaming_windowed_round_bit_identical_to_sealed(anchored):
-    d, S = 2048, 5
+    d, S = 1000, 5
     base, xs = _fleet(d, S, seed=8)
     anchor = base if anchored else None
-    js, ts = _specs(d=d, anchor=anchor, mtu=300, window=2)
+    js, ts = _specs(d=d, anchor=anchor, mtu=200, window=2)
     sealed = TServer(ts, base, streaming=False, device="cpu")
     for i in range(S):
         for f in TClient(ts, i, xs[i], anchor=anchor, device="cpu").frames():
@@ -235,9 +235,9 @@ def test_streaming_windowed_round_bit_identical_to_sealed(anchored):
 
 
 def test_rotated_round_within_lattice_bound():
-    d, S = 2000, 5
+    d, S = 1000, 5
     base, xs = _fleet(d, S, seed=3)
-    js, ts = _specs(d=d, bucket=256, rotate=True, y0=0.5)
+    js, ts = _specs(d=d, rotate=True, y0=0.5)
     jsrv = JServer(js, base)
     tsrv = TServer(ts, base, device="cpu")
     for i in range(S):

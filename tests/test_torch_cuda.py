@@ -41,7 +41,7 @@ def _inputs(n, bucket, seed):
     return x, u, a, sides
 
 
-@pytest.mark.parametrize("q", [2, 4, 16, 256, 65536])
+@pytest.mark.parametrize("q", [4, 16, 256, 65536])
 @pytest.mark.parametrize("kind", ["scalar", "coord", "bucket"])
 def test_encode_matches_plain(cuda, q, kind):
     n, bucket = 5003, 256
@@ -64,7 +64,7 @@ def test_encode_matches_plain(cuda, q, kind):
         np.testing.assert_array_equal(w.cpu().numpy(), want_w.numpy())
 
 
-@pytest.mark.parametrize("q", [2, 16, 256, 65536])
+@pytest.mark.parametrize("q", [4, 16, 256, 65536])
 @pytest.mark.parametrize("mode", ["coords", "point"])
 def test_decode_batched_matches_plain(cuda, q, mode):
     S, n, bucket = 7, 5003, 256
@@ -90,7 +90,7 @@ def test_decode_batched_matches_plain(cuda, q, mode):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("d", [1, 4, 128, 4096, 16384, 32768])
+@pytest.mark.parametrize("d", [4, 128, 4096, 16384])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwht_matches_plain(cuda, d, dtype):
     x = _t(np.random.RandomState(d).randn(5, d).astype(np.float32)).to(dtype)

@@ -164,6 +164,14 @@ def test_kernel_wrappers_reject_what_no_kernel_takes():
         lattice_decode_batched_cuda(torch.zeros((2, 8), dtype=torch.int32),
                                     x, x, 0.5, q=16, mode="points")
     with pytest.raises(ValueError, match="power of two"):
-        fwht_cuda(torch.zeros((2, 12)))
+        lattice_encode_cuda(x, x, 0.5, q=2)           # 1-bit colors
+    with pytest.raises(ValueError, match="n >= 32"):
+        lattice_encode_cuda(x[:31], x[:31], 0.5, q=16)
+    with pytest.raises(ValueError, match="n >= 32"):
+        lattice_decode_batched_cuda(torch.zeros((2, 4), dtype=torch.int32),
+                                    x[:31], x[:31], 0.5, q=16)
+    for d in (12, 2, 32768):
+        with pytest.raises(ValueError, match="power of two"):
+            fwht_cuda(torch.zeros((2, d)))
     with pytest.raises(ValueError, match="f32 or bf16"):
         fwht_cuda(torch.zeros((2, 16), dtype=torch.float64))
