@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's aggregation round on one CUDA card.
+"""Drive the PyTorch/CUDA port's aggregation round and quantized
+collectives on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]   # d = 277,845,504, 16 clients
+    python3 chip_smoke.py [--seed N]   # d = 277,845,504; 16 clients; 4 ranks
 
 The port (``src/repro_torch``) is the only thing imported: no JAX and
 nothing of the JAX package.  The script
 
 1. prints the card's name and power limit, and builds every CUDA kernel
    from the sources in the checkout (one ``nvcc`` per source, all at once);
-2. holds each kernel of the round's path against its plain torch version
-   at the path's shapes — the comparison on a leading slice of 2^24
+2. holds each kernel against its plain torch version at the shapes the
+   main paths give it — the comparison on a leading slice of 2^24
    coordinates (the plain versions' temporaries are too large for the
    whole shape), the timing at the full shape — and prints its time,
    bound, plain time and library-call time;
@@ -24,19 +25,33 @@ nothing of the JAX package.  The script
    parts (upload, decode, epilogue);
 4. runs round B: the same clients, rotated (§6) and anchored at round A's
    mean; checks ||mean - exact||_2 <= 0.51 s sqrt(N);
-5. runs a small round (d = 2^18, 8 clients) once on the card and once on
+5. runs the collectives: four ranks, one process each on the one card,
+   over a gloo group; rank r holds client vector r of rounds A and B.
+   The star, the butterfly and recursive halving (over the vector padded
+   to 277,856,256 = ``pad_to_shardable(d, 4, 4096)``), unrotated and
+   rotated, and recursive halving anchored at the star's mean.  Checks: no
+   decode failures; every rank sends exactly the bytes the wire
+   accounting gives; the star's and butterfly's outputs are the same on
+   every rank; the error against the exact mean is within the reference's
+   model, 0.51 s per quantization (per coordinate unrotated, in l2
+   rotated); and a small world-4 star and butterfly (d = 2^18) give the
+   same bits on the card as on the CPU.  A rank that fails, or has not
+   finished within ``RANK_TIMEOUT_S``, fails the run;
+6. runs a small round (d = 2^18, 8 clients) once on the card and once on
    the CPU (plain versions) and requires bitwise equal means, and a
    chunked, windowed streaming round on the card that must equal the
    sealed drain bit for bit;
-6. times the round's costs outside the kernels at full width (the threefry
+7. times the round's costs outside the kernels at full width (the threefry
    draws, the anchor digest, one CRC-32 pass over a frame);
-7. prints the ``kernels`` line, then the ``ok`` line last.
+8. prints the ``kernels`` line, then the ``ok`` line last.
 
-Every count of kernel launches is set to 0 just before rounds A and B and
-read just after them; a kernel of the path that was not launched there
-fails the run.  Any failed check raises before the last line is printed.
-Without a CUDA device, or without the port beside it, the script exits
-with a nonzero code and prints no result.
+Every count of kernel launches is set to 0 just before each main path
+(rounds A and B; each rank's collectives) and read just after it; a
+kernel of a path that was not launched there fails the run, and the
+``kernels`` line sums the counts of both paths over all ranks.  Any
+failed check raises before the last line is printed.  Without a CUDA
+device, or without the port beside it, the script exits with a nonzero
+code and prints no result.
 """
 from __future__ import annotations
 
@@ -58,9 +73,13 @@ F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 SLICE = 1 << 24                  # coordinates compared against the plain version
 FULL_D = 277_845_504             # whisper-small's parameter count
 CLIENTS = 16                     # clients per full-width round
+WORLD = 4                        # ranks of the collectives phase, one card
+RANK_TIMEOUT_S = 600             # a rank that takes longer fails the run
 KERNEL_SOURCES = {
     "lattice_encode": ("src/repro_torch/kernels/csrc/lattice_encode.cu",
                        "src/repro/kernels/lattice_encode.py:70"),
+    "lattice_decode": ("src/repro_torch/kernels/csrc/lattice_decode.cu",
+                       "src/repro/kernels/lattice_decode.py:93"),
     "lattice_decode_batched": ("src/repro_torch/kernels/csrc/lattice_decode.cu",
                                "src/repro/kernels/lattice_decode.py:180"),
     "fwht": ("src/repro_torch/kernels/csrc/fwht.cu",
@@ -200,7 +219,49 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     out["lattice_decode_batched"] = dict(
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
         max_abs_err=err, shape=f"S={senders}, N={n_pad}, q={q}, coords")
-    del words, s_s, u
+    del words, s_s
+
+    # --- single-payload decode, as the butterfly and recursive halving
+    # launch it: coords mode with per-bucket sides drawn at random; also
+    # coords with ref and points with the running-average epilogue, all
+    # bitwise (the kernel rounds the same steps as the plain version)
+    w1 = torch.randint(-(1 << 31), (1 << 31) - 1, (n_pad // 8,),
+                       generator=g, device=dev, dtype=torch.int32)
+    s1 = side * (0.5 + torch.rand(nb, generator=g, device=dev))
+    r1 = 0.5 * x
+    err = 0.0
+    for mode, rr, avg in (("coords", None, None), ("coords", r1, None),
+                          ("point", None, 3)):
+        got = ops.lattice_decode(w1, x, u, s1, q=q, mode=mode, ref=rr,
+                                 avg_cnt=avg, bucket=bucket)
+        torch.cuda.synchronize()
+        want = ref.lattice_decode_ref(
+            w1[:L_ // 8], x[:L_], u[:L_], s1[:L_ // bucket], q=q, bits=bits,
+            n=L_, mode=mode, avg_cnt=avg, bucket=bucket,
+            ref=None if rr is None else rr[:L_])
+        check(torch.equal(got[:L_].view(torch.int32),
+                          want.view(torch.int32)),
+              f"lattice_decode disagrees with its plain version ({mode}, "
+              f"ref={rr is not None}, avg_cnt={avg})")
+        err = max(err, max_abs_err(torch, got[:L_], want))
+        del got, want
+    del r1
+    ms = cuda_ms(torch, lambda: ops.lattice_decode(
+        w1, x, u, s1, q=q, mode="coords", bucket=bucket))
+
+    def plain_single():
+        for c0 in range(0, n_pad, SLICE):
+            c1 = min(n_pad, c0 + SLICE)
+            ref.lattice_decode_ref(w1[c0 // 8:c1 // 8], x[c0:c1], u[c0:c1],
+                                   s1[c0 // bucket:c1 // bucket], q=q,
+                                   bits=bits, n=c1 - c0, mode="coords",
+                                   bucket=bucket)
+    plain = cuda_ms(torch, plain_single, reps=1)
+    b, by = bound(n_pad * (bits / 8 + 4 + 4 + 4) + nb * 4, n_pad * 4)
+    out["lattice_decode"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        max_abs_err=err, shape=f"N={n_pad}, q={q}, coords, per-bucket sides")
+    del w1, s1, u
     torch.cuda.empty_cache()
 
     # --- fwht over (nb, bucket) rows, f32
@@ -394,8 +455,9 @@ def rounds_ab(torch, d: int, n_clients: int, seed: int):
         encode_launches=counts["lattice_encode"] - enc_a["lattice_encode"],
         fwht_launches=counts["fwht"] - enc_a["fwht"], l2_err=l2, bound=lim,
         seconds=t_b, wall_s=wall_b)
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("lattice_encode", "lattice_decode_batched", "fwht"):
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the main path")
     return counts
 
 
@@ -459,6 +521,282 @@ def small_rounds(torch, seed: int) -> None:
     say("small_rounds", d=d, clients=n, card_equals_cpu=True,
         chunks_per_client=len(clients[0].frames()),
         streaming_equals_sealed=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the collectives, four ranks on one card over a gloo group
+# ---------------------------------------------------------------------------
+
+def _gather_floats(torch, vals) -> "list[list[float]]":
+    """Every rank's short list of floats, in rank order (a CPU gloo
+    all-gather)."""
+    import torch.distributed as dist
+    t = torch.tensor(vals, dtype=torch.float64)
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return [o.tolist() for o in out]
+
+
+def collective_rank_main(torch, rank: int, world: int, seed: int) -> dict:
+    """One rank's share of the collectives phase; every check raises.
+
+    The main path: star, butterfly and recursive halving, unrotated and
+    then rotated, and recursive halving anchored at the star's mean, at
+    full width (q = 16, bucket = 4096, y = 0.25).  Rank r holds client
+    vector r of rounds A and B.  Then a small world-4 star and butterfly on
+    the card and on the CPU, which must agree bit for bit."""
+    import numpy as np
+
+    from repro_torch import random as R
+    from repro_torch.core import error_detect as ED
+    from repro_torch.core.qstate import QState
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.fsdp import pad_to_shardable
+    from repro_torch.kernels import _build
+
+    bucket, y0, q, d, dev = 4096, 0.25, 16, FULL_D, torch.device("cuda")
+    s = 2 * y0 / (q - 1)
+    rounds = world.bit_length() - 1
+    n_rh = pad_to_shardable(d, world, bucket)
+    seg = n_rh // world
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randn(d, generator=g, device=dev)
+    exact = torch.zeros(d, dtype=torch.float64, device=dev)
+    for r in range(world):
+        exact += client_vector(torch, base, seed, r).to(torch.float64)
+    exact /= world
+    x = client_vector(torch, base, seed, rank)
+    del base
+    lo, hi = rank * seg, min(d, (rank + 1) * seg)
+    weights = ED.checksum_weights(R.PRNGKey(seed + 99), d, device=dev)
+
+    # every tensor a rank sends, and the time the transport takes (host
+    # clock, synchronized on both sides: with gloo it is the copy to pinned
+    # host memory, the exchange and the copy back)
+    sent, moved = [], [0.0]
+
+    def counted(fn):
+        def call(t, *args, **kwargs):
+            sent.append(t.numel() * t.element_size())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(t, *args, **kwargs)
+            torch.cuda.synchronize()
+            moved[0] += time.perf_counter() - t0
+            return r
+        return call
+    C._all_gather, C._ppermute = counted(C._all_gather), counted(C._ppermute)
+
+    key = R.PRNGKey(seed)
+    nb, nb_rh = C.flat_size_padded(d, bucket) // bucket, n_rh // bucket
+    y = torch.full((nb,), y0, device=dev)
+    y_rh = torch.full((nb_rh,), y0, device=dev)
+    out = dict(rank=rank, seconds={}, transport_seconds={}, max_abs_err={},
+               l2_sq={}, bytes_sent={}, digest={}, held_gb={}, added_gb={})
+
+    def run(name, fn, xin, state, cfg, want_bytes):
+        """One collective call, timed; its memory is read around the call
+        alone: what the rank held when it called (its input included) and
+        the most the call added on top (its output included)."""
+        sent.clear()
+        moved[0] = 0.0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        o, aux = fn(xin, state, key, cfg)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["held_gb"][name] = held / 1e9
+        out["added_gb"][name] = (torch.cuda.max_memory_allocated()
+                                 - held) / 1e9
+        out["transport_seconds"][name] = moved[0]
+        check(float(aux.fails) == 0,
+              f"rank {rank} {name}: {float(aux.fails)} decode failures")
+        check(sum(sent) == want_bytes,
+              f"rank {rank} {name}: sent {sum(sent)} B, the wire "
+              f"accounting says {want_bytes} B")
+        out["bytes_sent"][name] = sum(sent)
+        return o
+
+    def errors(name, o, want):
+        diff = o.to(torch.float64) - want
+        out["max_abs_err"][name] = float(diff.abs().max())
+        out["l2_sq"][name] = float((diff * diff).sum())
+
+    def rh(name, state, cfg):
+        """Recursive halving over the zero-padded vector; rank r's
+        segment against the exact mean's (zero past d)."""
+        o = run(name, C.rh_reduce_scatter_mean,
+                torch.nn.functional.pad(x, (0, n_rh - d)), state, cfg,
+                C.wire_bytes_rh(n_rh, world, cfg))
+        check(tuple(o.shape) == (seg,), f"rank {rank} {name}: shape "
+              f"{tuple(o.shape)}, expected ({seg},)")
+        errors(name, o, torch.nn.functional.pad(exact[lo:hi],
+                                                (0, seg - max(0, hi - lo))))
+
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    for rotate in (False, True):
+        cfg = C.QSyncConfig(q=q, bucket=bucket, rotate=rotate)
+        tag = "_rot" if rotate else ""
+        star_mean = None
+        for name, fn, want in (
+                ("star", C.allgather_allreduce_mean, C._payload_bytes(d, cfg)),
+                ("butterfly", C.butterfly_allreduce_mean,
+                 C.wire_bytes_butterfly(d, world, cfg))):
+            o = run(name + tag, fn, x, y, cfg, want)
+            check(tuple(o.shape) == (d,) and bool(torch.isfinite(o).all()),
+                  f"rank {rank} {name}{tag}: not a finite (d,) vector")
+            errors(name + tag, o, exact)
+            out["digest"][name + tag] = int(ED.coord_checksum(
+                o.view(torch.int32), weights))
+            if name == "star" and not rotate:
+                star_mean = o
+            del o
+        rh("rh" + tag, y_rh, cfg)
+        if star_mean is not None:
+            rh("rh_anchored", QState(y=y_rh, anchor=torch.nn.functional.pad(
+                star_mean, (0, n_rh - d))), cfg)
+            del star_mean
+    out["path_seconds"] = time.perf_counter() - t_path
+    out["launches"] = dict(_build.LAUNCHES)   # read just after the path
+    del x, exact, weights
+
+    # the error model of the reference (s/2 per quantization): the star
+    # quantizes once, the butterfly and recursive halving once per round;
+    # rotated runs are held in l2 over the whole vector
+    names = sorted(out["l2_sq"])
+    l2 = _gather_floats(torch, [out["l2_sq"][k] for k in names])
+    digests = _gather_floats(torch, [float(out["digest"][k])
+                                     for k in sorted(out["digest"])])
+    check(all(dg == digests[0] for dg in digests),
+          f"star / butterfly outputs differ across ranks: {digests}")
+    out["bounds"] = {}
+    for i, name in enumerate(names):
+        per_round = 1 if name.startswith("star") else rounds
+        if name.endswith("_rot"):
+            n = n_rh if name.startswith("rh") else d
+            total = (sum(r[i] for r in l2) if name.startswith("rh")
+                     else l2[rank][i])
+            lim = 0.51 * s * n ** 0.5 * per_round
+            out["bounds"][name] = dict(l2=total ** 0.5, limit=lim)
+            check(total ** 0.5 <= lim, f"{name}: ||out - exact||_2 = "
+                  f"{total ** 0.5} > {lim}")
+        else:
+            err, lim = out["max_abs_err"][name], 0.51 * s * per_round
+            out["bounds"][name] = dict(max_abs=err, limit=lim)
+            check(err <= lim, f"rank {rank} {name}: max |out - exact| = "
+                  f"{err} > {lim}")
+    torch.cuda.empty_cache()
+
+    # small parity: the card's star and butterfly equal the CPU's bitwise
+    d2 = 1 << 18
+    base2 = np.random.RandomState(seed).randn(d2).astype(np.float32)
+    x2 = (base2 + 0.02 * np.random.RandomState(seed + 1 + rank)
+          .randn(d2)).astype(np.float32)
+    cfg2 = C.QSyncConfig(q=q, bucket=bucket)
+    for name, fn in (("star", C.allgather_allreduce_mean),
+                     ("butterfly", C.butterfly_allreduce_mean)):
+        res = []
+        for dv in (dev, torch.device("cpu")):
+            o, aux = fn(torch.from_numpy(x2).to(dv),
+                        torch.full((d2 // bucket,), y0, device=dv), key, cfg2)
+            res.append((o.cpu().view(torch.int32),
+                        aux.dist_b.cpu().view(torch.int32)))
+        check(torch.equal(res[0][0], res[1][0])
+              and torch.equal(res[0][1], res[1][1]),
+              f"rank {rank} small {name}: the card differs from the CPU")
+    out["small_card_equals_cpu"] = True
+    return out
+
+
+def _collective_rank(rank: int, world: int, port: int, seed: int,
+                     queue) -> None:
+    """Entry point of one spawned rank: joins the gloo group, runs its
+    share, and puts ``(rank, "ok", result)`` or ``(rank, "error",
+    traceback)`` on the queue."""
+    import datetime
+    import os
+    import traceback
+
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        try:
+            res = collective_rank_main(torch, rank, world, seed)
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, "ok", res))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        sys.exit(1)
+
+
+def collectives(seed: int) -> dict:
+    """Spawn ``WORLD`` ranks, one process each, on the one card; fail when a
+    rank fails, or when any has not finished within ``RANK_TIMEOUT_S``.
+    Returns the ranks' results in rank order."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_collective_rank,
+                         args=(r, WORLD, port, seed, q),
+                         daemon=True) for r in range(WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while len(results) < WORLD:
+            missing = [r for r in range(WORLD) if r not in results]
+            check(time.monotonic() < deadline,
+                  f"collectives: ranks {missing} did not finish within "
+                  f"{RANK_TIMEOUT_S} s")
+            try:
+                rank, status, payload = q.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [r for r in missing if not procs[r].is_alive()]
+                check(not dead, f"collectives: ranks {dead} exited without "
+                      f"a result")
+                continue
+            check(status == "ok", f"collectives: rank {rank} failed:\n"
+                  f"{payload}")
+            results[rank] = payload
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = [results[r] for r in range(WORLD)]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the collectives")
+    say("collectives", world=WORLD, d=FULL_D, wall_s=time.perf_counter() - t0,
+        launches=launches,
+        ranks=[{k: r[k] for k in ("rank", "seconds", "transport_seconds",
+                                  "path_seconds", "held_gb", "added_gb",
+                                  "bytes_sent", "bounds",
+                                  "small_card_equals_cpu")} for r in ranks])
+    return launches
 
 
 def host_costs(torch, d: int, seed: int) -> None:
@@ -540,6 +878,10 @@ def main() -> int:
     checks = kernel_checks(torch, spec.padded, spec.cfg.bucket, CLIENTS,
                            args.seed)
     counts = rounds_ab(torch, FULL_D, CLIENTS, args.seed)
+    torch.cuda.empty_cache()
+    coll = collectives(args.seed)
+    counts = {k: counts.get(k, 0) + coll.get(k, 0)
+              for k in KERNEL_SOURCES}
     small_rounds(torch, args.seed)
     host_costs(torch, FULL_D, args.seed)
 

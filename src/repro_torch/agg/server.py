@@ -165,10 +165,13 @@ def _drain_math(words: torch.Tensor, sides: torch.Tensor,
         k_eff = kc + mm1 * k0[None, c0:c1]
         max_abs = torch.maximum(max_abs, k_eff.abs().amax(dim=1))
         b0, b1 = c0 // bucket, c1 // bucket
-        z = (kc.to(torch.float32) + u[None, c0:c1]).reshape(
-            senders, b1 - b0, bucket) * sides[:, b0:b1, None]
-        dist = (z - anchor[c0:c1].reshape(1, b1 - b0, bucket)).abs()
-        dist_bk[:, b0:b1] = dist.amax(dim=-1)
+        t = (kc.to(torch.float32) + u[None, c0:c1]).reshape(
+            senders, b1 - b0, bucket)
+        # |(k + u) * s - anchor|, the mul-sub rounded once as the
+        # reference's compiled drain rounds it
+        dist_bk[:, b0:b1] = L.fma_f32_abs_amax(
+            t, sides[:, b0:b1, None],
+            -anchor[c0:c1].reshape(1, b1 - b0, bucket))
     ok = (check & _M32) == checks
     ksum_delta = torch.zeros(n, dtype=torch.int32, device=dev)
     idx = torch.nonzero(ok).flatten()
@@ -432,9 +435,9 @@ class AggServer:
             # distance telemetry, masked to unit payloads like _drain_math
             b = self.spec.cfg.bucket
             bidx = torch.arange(c0, c0 + n, device=self.device) // b
-            z = (k.to(torch.float32) + self._u.reshape(-1)[c0:c0 + n]) \
-                * self._sides[bidx]
-            dist = (z - self._ref_flat[c0:c0 + n]).abs()
+            t = k.to(torch.float32) + self._u.reshape(-1)[c0:c0 + n]
+            dist = L.fma_f32(t, self._sides[bidx],
+                             -self._ref_flat[c0:c0 + n]).abs()
             rec.dist_b.scatter_reduce_(0, bidx, dist, reduce="amax")
 
     def _drop_stream(self, h: wire.FrameHeader) -> None:

@@ -113,6 +113,50 @@ def coords_to_point(k: torch.Tensor, s, u: Optional[torch.Tensor] = None,
             ).to(dtype)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors, rounded once to f32, as a fused
+    multiply-add rounds it.  The reference's compiler (XLA on the CPU)
+    contracts such mul-adds where it fuses them, so the port rounds them
+    once where the reference's programs do.
+
+    The f64 product of two f32s is exact.  The f64 sum is not when the
+    addends lie far apart, and rounding it to nearest and then to f32
+    could land on an f32 tie the exact sum misses.  So the sum is rounded
+    to odd instead (its error from a two-sum decides), which 53 bits make
+    safe to round again to f32's 24 (Boldo and Melquiond, 2008)."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bp = s - cd
+    err = (s - bp).neg_().add_(cd).add_(p - bp)   # s + err == a * b + c
+    del p, cd, bp
+    bits = s.view(torch.int64)
+    # inexact with an even last bit: one ulp toward the exact sum
+    step = torch.sign(err.mul_(s)).to(torch.int64).mul_((bits & 1) ^ 1)
+    return bits.add_(step).view(torch.float64).to(torch.float32)
+
+
+def fma_f32_abs_amax(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                     ) -> torch.Tensor:
+    """``fma_f32(a, b, c).abs().amax(-1)`` at the cost of one f64 sum.
+
+    Rounding is monotone, so the largest f64 sum of a row is the f64
+    rounding of the row's largest exact one, and rounding it on to f32
+    goes wrong only where it sits on an f32 tie.  Those rows (rare) are
+    taken again through ``fma_f32``."""
+    m = (a.double() * b.double() + c.double()).abs_().amax(-1)
+    r = m.to(torch.float32)
+    lo = r.double()
+    other = torch.nextafter(
+        r, torch.where(lo < m, float("inf"), float("-inf"))).double()
+    tie = (lo + other) * 0.5 == m
+    if bool(tie.any()):
+        a, b, c = torch.broadcast_tensors(a, b, c)
+        r[tie] = fma_f32(a[tie], b[tie], c[tie]).abs().amax(-1)
+    return r
+
+
 # ---------------------------------------------------------------------------
 # Bit packing (plain torch; the CUDA encode kernel fuses this with encode)
 # ---------------------------------------------------------------------------

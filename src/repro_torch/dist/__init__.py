@@ -1,1 +1,2 @@
-"""Distributed pieces of the port (so far: the quantized-sync config)."""
+"""Distributed pieces of the port: the quantized mean collectives over
+``torch.distributed`` and the FSDP storage-size rule."""

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES = {"lattice_encode": 0, "lattice_decode_batched": 0, "fwht": 0}
+LAUNCHES = {"lattice_encode": 0, "lattice_decode": 0,
+            "lattice_decode_batched": 0, "fwht": 0}
 
 _libs: "dict[str, ctypes.CDLL]" = {}
 _lock = threading.Lock()

@@ -1,45 +1,97 @@
-// Batched proximity decode of S packed payloads for Hopper (sm_90a).
+// Proximity decode of packed lattice payloads for Hopper (sm_90a): one
+// payload (lattice_decode_kernel) or S payloads against one anchor
+// (lattice_decode_batched_kernel).
 //
-// Replaces: repro/kernels/lattice_decode.py, lattice_decode_batched_pallas
-// (_decode_batched_kernel, math in _decode_math).  For every sender i < S
-// and coordinate c < n:
-//     col  = (words[i, c / PER] >> ((c % PER) * BITS)) & (q-1)
+// Replaces: repro/kernels/lattice_decode.py, lattice_decode_pallas
+// (_decode_kernel) and lattice_decode_batched_pallas
+// (_decode_batched_kernel), both with their math in _decode_math.  For a
+// payload's coordinate c < n:
+//     col  = (words[c / PER] >> ((c % PER) * BITS)) & (q-1)
 //     av   = anchor[c] - ref[c]                         (ref optional)
 //     k_a  = round_half_even(av / s - u[c])
 //     k    = k_a + (((col - k_a + q/2) & (q-1)) - q/2)
 // and writes k (coords mode, int32) or z = (k + u[c]) * s (+ ref[c])
-// (point mode, f32) to out[i, c].  BITS is 2, 4, 8 or 16, the reference's
-// kernel shapes.
+// (point mode, f32).  The single decode's point mode may add the
+// running-average epilogue z' = (z + anchor[c] * avg_cnt) * recip, with
+// recip the f32 rounding of 1 / (avg_cnt + 1), a multiply as in the TPU
+// kernel.  BITS is 2, 4, 8 or 16, the reference's kernel shapes.
 //
-// Sides: s[i * s_row + (c >> s_shift)].  The server's drain passes the
-// per-sender per-bucket sidecars (S, nb) with s_row = nb and
-// s_shift = log2(bucket), so the (S, n) per-coordinate broadcast the
-// reference builds (17.8 GB at 16 senders of 278 M coordinates) never
-// exists.  (n,) shared sides use s_row = 0, s_shift = 0; (S, n) use
-// s_row = n; a scalar uses s_row = 0, s_shift = 63.
+// Sides: s[i * s_row + (c >> s_shift)] for payload i.  The collectives and
+// the server's drain pass per-bucket sidecars ((nb,) or (S, nb)) with
+// s_shift = log2(bucket), so the per-coordinate broadcast the reference
+// builds (1.1 GB per payload at 278 M coordinates) never exists.  (n,)
+// sides use s_shift = 0, (S, n) s_row = n, a scalar s_row = 0 and
+// s_shift = 63.
 //
 // Numerics copied from the reference: IEEE division (__fdiv_rn), round
 // half to even (__float2int_rn), and no mul-add contraction in point mode
 // (__fadd_rn / __fmul_rn; the file is also built with -fmad=false).  The
 // centered-mod arithmetic runs in uint32 so that it wraps, as XLA's int32
-// arithmetic does, without signed-overflow behaviour.
+// arithmetic does, without signed-overflow behaviour.  Both kernels share
+// that math (decode_coord, decode_point).
 //
-// Bound on this card: memory.  Per coordinate: S * BITS/8 B of words,
-// 8 B of anchor + dither (12 B with ref) read once, and S * 4 B written
-// (int32 coords or f32 points); the per-bucket sides are S * 4 B per
-// bucket.  At q = 16 and S = 16 that is 80 B per coordinate.
+// Bound on this card: memory.  Single decode, per coordinate: BITS/8 B of
+// words, 4 B each of anchor and dither (and of ref) read once, 4 B
+// written; per-bucket sides 4 B per bucket.  At q = 16 in coords mode that
+// is 12.5 B per coordinate (16.5 B with ref): 1.04 ms for 277,848,064
+// coordinates at 3.35 TB/s.  Batched decode: S * BITS/8 B of words, 8 B of
+// anchor + dither (12 B with ref) once, S * 4 B written; 80 B per
+// coordinate at q = 16 and S = 16.
 //
-// Design: one thread per coordinate, looping over the senders.  The
-// anchor, dither and ref of a coordinate are loaded once into registers
-// and reused for all S senders (the TPU kernel's "anchor block read once
-// per tile"), every store is a coalesced 4-byte access across the warp,
-// and the PER threads that share a word read the same address (one
-// transaction).  No shared memory, no allocation; the launch goes on the
-// caller's stream.
+// Design: one thread per coordinate.  Every load of anchor, dither and
+// ref and every store is a coalesced 4-byte access across the warp; the
+// PER threads that share a word read the same address (one transaction).
+// The batched kernel loops over the senders with the anchor, dither and
+// ref of its coordinate held in registers (the TPU kernel's "anchor block
+// read once per tile").  No shared memory, no allocation; each launch goes
+// on the caller's stream.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+// k of one coordinate: av is anchor - ref, uv the dither, sv the side.
+__device__ __forceinline__ int decode_coord(uint32_t col, float av, float uv,
+                                            float sv, uint32_t qm,
+                                            uint32_t half) {
+  const int ka = __float2int_rn(__fsub_rn(__fdiv_rn(av, sv), uv));
+  const uint32_t delta = ((col - (uint32_t)ka + half) & qm) - half;
+  return (int)((uint32_t)ka + delta);
+}
+
+// z = (k + u) * s, plus ref when the sender subtracted one.
+template <bool REF>
+__device__ __forceinline__ float decode_point(int k, float uv, float sv,
+                                              float rv) {
+  float z = __fmul_rn(__fadd_rn(__int2float_rn(k), uv), sv);
+  if (REF) z = __fadd_rn(z, rv);
+  return z;
+}
+
+template <int BITS, bool COORDS, bool REF, bool AVG>
+__global__ void lattice_decode_kernel(
+    const uint32_t* __restrict__ words, const float* __restrict__ anchor,
+    const float* __restrict__ u, const float* __restrict__ ref,
+    const float* __restrict__ s, int s_shift, void* __restrict__ out,
+    int64_t n, uint32_t q, float avg_cnt, float recip) {
+  constexpr int PER = 32 / BITS;
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  const float a = anchor[c];
+  const float uv = u[c];
+  const float rv = REF ? ref[c] : 0.f;
+  const float av = REF ? __fsub_rn(a, rv) : a;
+  const float sv = s[c >> s_shift];
+  const uint32_t col = (words[c / PER] >> ((int)(c % PER) * BITS)) & (q - 1u);
+  const int k = decode_coord(col, av, uv, sv, q - 1u, q >> 1);
+  if (COORDS) {
+    static_cast<int32_t*>(out)[c] = k;
+  } else {
+    float z = decode_point<REF>(k, uv, sv, rv);
+    if (AVG) z = __fmul_rn(__fadd_rn(z, __fmul_rn(a, avg_cnt)), recip);
+    static_cast<float*>(out)[c] = z;
+  }
+}
 
 template <int BITS, bool COORDS, bool REF>
 __global__ void lattice_decode_batched_kernel(
@@ -51,13 +103,9 @@ __global__ void lattice_decode_batched_kernel(
   constexpr int PER = 32 / BITS;
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n) return;
-  float av = anchor[c];
   const float uv = u[c];
-  float rv = 0.f;
-  if (REF) {
-    rv = ref[c];
-    av = __fsub_rn(av, rv);
-  }
+  const float rv = REF ? ref[c] : 0.f;
+  const float av = REF ? __fsub_rn(anchor[c], rv) : anchor[c];
   const int64_t w = c / PER;
   const int shift = (int)(c % PER) * BITS;
   const uint32_t qm = q - 1u, half = q >> 1;
@@ -65,41 +113,85 @@ __global__ void lattice_decode_batched_kernel(
   for (int64_t i = 0; i < senders; ++i) {
     const uint32_t col = (words[i * w_row + w] >> shift) & qm;
     const float sv = s[i * s_row + sc];
-    const int ka = __float2int_rn(__fsub_rn(__fdiv_rn(av, sv), uv));
-    const uint32_t delta = ((col - (uint32_t)ka + half) & qm) - half;
-    const int k = (int)((uint32_t)ka + delta);
+    const int k = decode_coord(col, av, uv, sv, qm, half);
     if (COORDS) {
       static_cast<int32_t*>(out)[i * n + c] = k;
     } else {
-      float z = __fmul_rn(__fadd_rn(__int2float_rn(k), uv), sv);
-      if (REF) z = __fadd_rn(z, rv);
-      static_cast<float*>(out)[i * n + c] = z;
+      static_cast<float*>(out)[i * n + c] = decode_point<REF>(k, uv, sv, rv);
     }
   }
 }
 
+constexpr int kThreads = 256;
+
+inline unsigned blocks_for(int64_t n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
 template <int BITS>
-void launch(const uint32_t* words, int64_t w_row, const float* anchor,
-            const float* u, const float* ref, const float* s, int64_t s_row,
-            int s_shift, void* out, int coords, int64_t senders, int64_t n,
-            uint32_t q, cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-#define DECODE_LAUNCH(C, R)                                              \
-  lattice_decode_batched_kernel<BITS, C, R><<<blocks, threads, 0, stream>>>( \
+void launch_one(const uint32_t* words, const float* anchor, const float* u,
+                const float* ref, const float* s, int s_shift, void* out,
+                int coords, int avg, float avg_cnt, float recip, int64_t n,
+                uint32_t q, cudaStream_t stream) {
+#define DECODE_ONE(C, R, A)                                                 \
+  lattice_decode_kernel<BITS, C, R, A><<<blocks_for(n), kThreads, 0, stream>>>( \
+      words, anchor, u, ref, s, s_shift, out, n, q, avg_cnt, recip)
+  if (coords && ref) DECODE_ONE(true, true, false);
+  else if (coords) DECODE_ONE(true, false, false);
+  else if (ref && avg) DECODE_ONE(false, true, true);
+  else if (ref) DECODE_ONE(false, true, false);
+  else if (avg) DECODE_ONE(false, false, true);
+  else DECODE_ONE(false, false, false);
+#undef DECODE_ONE
+}
+
+template <int BITS>
+void launch_batched(const uint32_t* words, int64_t w_row, const float* anchor,
+                    const float* u, const float* ref, const float* s,
+                    int64_t s_row, int s_shift, void* out, int coords,
+                    int64_t senders, int64_t n, uint32_t q,
+                    cudaStream_t stream) {
+#define DECODE_BATCHED(C, R)                                              \
+  lattice_decode_batched_kernel<BITS, C, R><<<blocks_for(n), kThreads, 0, \
+                                              stream>>>(                  \
       words, w_row, anchor, u, ref, s, s_row, s_shift, out, senders, n, q)
-  if (coords && ref) DECODE_LAUNCH(true, true);
-  else if (coords) DECODE_LAUNCH(true, false);
-  else if (ref) DECODE_LAUNCH(false, true);
-  else DECODE_LAUNCH(false, false);
-#undef DECODE_LAUNCH
+  if (coords && ref) DECODE_BATCHED(true, true);
+  else if (coords) DECODE_BATCHED(true, false);
+  else if (ref) DECODE_BATCHED(false, true);
+  else DECODE_BATCHED(false, false);
+#undef DECODE_BATCHED
 }
 
 }  // namespace
 
-// Returns the CUDA error code of the launch (0 = launched).  ref may be
-// null.  out is (senders, n) int32 when coords != 0, else f32.  Any stale
-// error is cleared first so that the code reports this launch alone.
+// Each launcher returns the CUDA error code of its launch (0 = launched).
+// Any stale error is cleared first so that the code reports this launch
+// alone.  ref may be null.
+
+// One payload: out is (n,) int32 when coords != 0, else f32.  avg != 0
+// (point mode only) adds the running-average epilogue with avg_cnt and
+// recip = f32(1 / (avg_cnt + 1)).
+extern "C" int lattice_decode_launch(
+    const uint32_t* words, const float* anchor, const float* u,
+    const float* ref, const float* s, int s_shift, void* out, int coords,
+    int avg, float avg_cnt, float recip, int64_t n, int q, int bits,
+    void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (coords && avg) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t uq = (uint32_t)q;
+  switch (bits) {
+    case 2: launch_one<2>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    case 4: launch_one<4>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    case 8: launch_one<8>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    case 16: launch_one<16>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// S payloads: out is (senders, n) int32 when coords != 0, else f32.
 extern "C" int lattice_decode_batched_launch(
     const uint32_t* words, int64_t w_row, const float* anchor, const float* u,
     const float* ref, const float* s, int64_t s_row, int s_shift, void* out,
@@ -109,10 +201,10 @@ extern "C" int lattice_decode_batched_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t uq = (uint32_t)q;
   switch (bits) {
-    case 2: launch<2>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
-    case 4: launch<4>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
-    case 8: launch<8>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
-    case 16: launch<16>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
+    case 2: launch_batched<2>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
+    case 4: launch_batched<4>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
+    case 8: launch_batched<8>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
+    case 16: launch_batched<16>(words, w_row, anchor, u, ref, s, s_row, s_shift, out, coords, senders, n, uq, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

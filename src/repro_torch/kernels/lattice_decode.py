@@ -1,13 +1,17 @@
-"""Wrapper of the batched lattice-decode CUDA kernel (``csrc/lattice_decode.cu``).
+"""Wrappers of the lattice-decode CUDA kernels (``csrc/lattice_decode.cu``).
 
-Counterpart of ``repro.kernels.lattice_decode.lattice_decode_batched_pallas``:
-one launch decodes every sender's packed payload against the shared
-anchor, to int32 coordinates (``mode="coords"``) or f32 points
-(``mode="point"``).  The plain torch version is
-:func:`repro_torch.kernels.ref.lattice_decode_batched_ref`.
-
-The single-payload decode of the reference (``lattice_decode_pallas``,
-used by the butterfly and recursive-halving collectives) is not ported yet.
+* :func:`lattice_decode_cuda`, counterpart of
+  ``repro.kernels.lattice_decode.lattice_decode_pallas``: one payload
+  against the anchor, to int32 coordinates (``mode="coords"``) or f32
+  points (``mode="point"``, with the optional running-average epilogue).
+  The butterfly and recursive-halving collectives launch it once per rank
+  per round.  Plain version:
+  :func:`repro_torch.kernels.ref.lattice_decode_ref`.
+* :func:`lattice_decode_batched_cuda`, counterpart of
+  ``lattice_decode_batched_pallas``: one launch decodes every sender's
+  payload against the shared anchor (the star collective and the server's
+  drain).  Plain version:
+  :func:`repro_torch.kernels.ref.lattice_decode_batched_ref`.
 """
 from __future__ import annotations
 
@@ -19,7 +23,71 @@ import torch
 from repro_torch.core import lattice as L
 from repro_torch.kernels import _build
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_float
+
+
+def _check_words(words: torch.Tensor, n: int, bits: int) -> None:
+    if words.dim() < 1 or words.shape[-1] < L.packed_len(n, bits):
+        raise ValueError(f"words of shape {tuple(words.shape)} cannot hold "
+                         f"{n} coordinates at {bits} bits")
+
+
+def _single_launcher():
+    fn = _build.load("lattice_decode").lattice_decode_launch
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _I64, _I, _I,
+                   _P]
+    fn.restype = _I
+    return fn
+
+
+def lattice_decode_cuda(words: torch.Tensor, anchor: torch.Tensor,
+                        u: torch.Tensor, s, *, q: int,
+                        avg_cnt: Optional[int] = None, mode: str = "point",
+                        ref: Optional[torch.Tensor] = None,
+                        bucket: Optional[int] = None) -> torch.Tensor:
+    """Decode one payload's packed words (int32 bit view) against the f32
+    anchor (n,) on the card -> (n,) int32 coords or f32 points.
+
+    ``s`` is a scalar, a per-coordinate (n,) array, or per-bucket sides
+    (nb,) with ``bucket``; ``ref`` (n,) is the anchor the sender
+    subtracted.  ``avg_cnt`` (point mode only) adds the epilogue
+    ``(z + anchor * avg_cnt) * f32(1 / (avg_cnt + 1))``."""
+    if mode not in ("coords", "point"):
+        raise ValueError(f"mode must be 'coords' or 'point', got {mode!r}")
+    if avg_cnt is not None and mode != "point":
+        raise ValueError("avg_cnt needs mode='point'")
+    bits = L.bits_for_q(q)
+    dev = anchor.device
+    n = anchor.numel()
+    _build.check_lattice_shape("decode", q, bits, n)
+    _check_words(words, n, bits)
+    if words.dim() != 1:
+        raise ValueError(f"words must be one payload (1-d), got shape "
+                         f"{tuple(words.shape)}")
+    _build.check_tensor(words, "words", torch.int32, dev)
+    _build.check_tensor(anchor, "anchor", torch.float32, dev, (n,))
+    _build.check_tensor(u, "u", torch.float32, dev, (n,))
+    if ref is not None:
+        _build.check_tensor(ref, "ref", torch.float32, dev, (n,))
+    sides, _, shift = _build.side_layout(s, n, dev, bucket=bucket)
+    coords = mode == "coords"
+    avg = avg_cnt is not None
+    # the TPU kernel's scalars: avg_cnt as f32, and 1 / (avg_cnt + 1)
+    # computed in double and rounded to f32 (ctypes rounds both)
+    cnt = float(avg_cnt) if avg else 0.0
+    recip = 1.0 / (avg_cnt + 1) if avg else 1.0
+    out = torch.empty(n, device=dev,
+                      dtype=torch.int32 if coords else torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _single_launcher()(
+        words.data_ptr(), anchor.data_ptr(), u.data_ptr(),
+        ref.data_ptr() if ref is not None else None, sides.data_ptr(), shift,
+        out.data_ptr(), int(coords), int(avg), cnt, recip, n, q, bits,
+        stream)
+    _build.check(err, "lattice_decode")
+    _build.LAUNCHES["lattice_decode"] += 1
+    return out
 
 
 def _launcher():
@@ -48,9 +116,10 @@ def lattice_decode_batched_cuda(words: torch.Tensor, anchor: torch.Tensor,
     dev = anchor.device
     n = anchor.numel()
     _build.check_lattice_shape("decode", q, bits, n)
-    if words.dim() != 2 or words.shape[1] < L.packed_len(n, bits):
-        raise ValueError(f"words of shape {tuple(words.shape)} cannot hold "
-                         f"{n} coordinates at {bits} bits")
+    _check_words(words, n, bits)
+    if words.dim() != 2:
+        raise ValueError(f"words must be (senders, n_words), got shape "
+                         f"{tuple(words.shape)}")
     senders = words.shape[0]
     _build.check_tensor(words, "words", torch.int32, dev)
     _build.check_tensor(anchor, "anchor", torch.float32, dev, (n,))

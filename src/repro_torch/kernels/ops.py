@@ -11,8 +11,8 @@ two in [4, 16384].  Where the reference sends any other shape to its plain
 version, a CUDA tensor of that shape raises here.
 
 ``DISPATCH_COUNTS`` keeps the reference's semantics: one count per
-batched-decode call, whichever device ran it, so a drain can be shown to
-issue exactly one batched decode.  The residual and packing helpers are
+decode call (single or batched), whichever device ran it, so a drain can
+be shown to issue exactly one batched decode.  The residual and packing helpers are
 plain torch integer ops on either device (jitted jnp in the reference, not
 Pallas) and are deliberately not counted.  The per-kernel launch counts
 live in :data:`repro_torch.kernels._build.LAUNCHES`.
@@ -27,7 +27,8 @@ import repro_torch.obs as _obs
 from repro_torch.core import lattice as L
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fwht import fwht_cuda
-from repro_torch.kernels.lattice_decode import lattice_decode_batched_cuda
+from repro_torch.kernels.lattice_decode import (lattice_decode_batched_cuda,
+                                                lattice_decode_cuda)
 from repro_torch.kernels.lattice_encode import lattice_encode_cuda
 
 _DISPATCH = {
@@ -110,6 +111,28 @@ def lattice_encode(x: torch.Tensor, u: torch.Tensor, s, *, q: int,
                                        anchor=anchor, bucket=bucket)
     return lattice_encode_cuda(x, u, s, anchor, q=q,
                                return_coords=return_coords, bucket=bucket)
+
+
+def lattice_decode(words: torch.Tensor, anchor: torch.Tensor,
+                   u: torch.Tensor, s, *, q: int,
+                   avg_cnt: Optional[int] = None, mode: str = "point",
+                   ref: Optional[torch.Tensor] = None,
+                   bucket: Optional[int] = None) -> torch.Tensor:
+    """Fused decode of one payload against the anchor (n,):
+    ``mode="point"`` gives z (with the running-average epilogue when
+    ``avg_cnt`` is given), ``mode="coords"`` the int32 coordinates.
+
+    ``s`` is a scalar side, a per-coordinate (n,) array, or per-bucket
+    sides (nb,) with ``bucket``; ``ref`` (n,) the anchor the sender
+    subtracted."""
+    _DISPATCH["lattice_decode"].inc()
+    if _on_cpu(anchor):
+        return _ref.lattice_decode_ref(
+            words, anchor, u, s, q=q, bits=L.bits_for_q(q),
+            n=anchor.shape[0], avg_cnt=avg_cnt, mode=mode, ref=ref,
+            bucket=bucket)
+    return lattice_decode_cuda(words, anchor, u, s, q=q, avg_cnt=avg_cnt,
+                               mode=mode, ref=ref, bucket=bucket)
 
 
 def lattice_decode_batched(words: torch.Tensor, anchor: torch.Tensor,

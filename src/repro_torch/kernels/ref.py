@@ -43,6 +43,35 @@ def lattice_encode_ref(x: torch.Tensor, u: torch.Tensor, s, *, q: int,
     return (words, k) if return_coords else words
 
 
+def lattice_decode_ref(words: torch.Tensor, anchor: torch.Tensor,
+                       u: torch.Tensor, s, *, q: int, bits: int, n: int,
+                       avg_cnt: Optional[int] = None, mode: str = "point",
+                       ref: Optional[torch.Tensor] = None,
+                       bucket: Optional[int] = None) -> torch.Tensor:
+    """One payload vs the (n,) anchor -> int32 coords (``mode="coords"``)
+    or f32 points z = (k + u) * s (+ ref).  With ``avg_cnt`` the point gets
+    the running-average epilogue ``(z + anchor * avg_cnt) * recip``, with
+    ``recip`` the f32 rounding of 1 / (avg_cnt + 1), as the TPU kernel
+    computes it (a multiply, not a division)."""
+    if mode not in ("coords", "point"):
+        raise ValueError(f"mode must be 'coords' or 'point', got {mode!r}")
+    if avg_cnt is not None and mode != "point":
+        raise ValueError("avg_cnt needs mode='point'")
+    colors = L.unpack_colors(words, n, bits)
+    sa = expand_sides(s, n, bucket, anchor.device)
+    av = anchor.to(torch.float32) - ref if ref is not None else anchor
+    k = L.decode_coords(colors, av, sa, u, q=q)
+    if mode == "coords":
+        return k
+    z = L.coords_to_point(k, sa, u, torch.float32)
+    if ref is not None:
+        z = z + ref
+    if avg_cnt is not None:
+        # a Python float scalar is rounded to f32 before the multiply
+        z = (z + anchor.to(torch.float32) * avg_cnt) * (1.0 / (avg_cnt + 1))
+    return z
+
+
 def lattice_decode_batched_ref(words: torch.Tensor, anchor: torch.Tensor,
                                u: torch.Tensor, s, *, q: int, bits: int,
                                n: int, mode: str = "coords",

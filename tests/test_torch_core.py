@@ -143,3 +143,77 @@ def test_round_randomness_and_ref_coords_bitwise(rotate, anchored):
         np.testing.assert_array_equal(
             TRd.decode_ref_coords(ts, convert.tensor(anchor)).numpy(),
             np.asarray(JR.decode_ref_coords(js, anchor)))
+
+
+def test_qstate_update_y_bitwise():
+    from repro.core import qstate as JQS
+    from repro_torch.core import qstate as TQS
+
+    rng = np.random.RandomState(11)
+    nb = 64
+    y = (0.1 + rng.rand(3, nb)).astype(np.float32)
+    dist_b = (y * rng.choice([0.0, 1e-9, 0.05, 0.3, 0.9, 3.0], (3, nb))
+              ).astype(np.float32)
+    fails_b = rng.choice([0.0, 0.0, 1.0, 2.0], (3, nb)).astype(np.float32)
+    for kw in ({}, dict(decay=0.9, escalate=3.0, margin=2.0, floor=1e-3)):
+        want = np.asarray(JQS.update_y(jnp.asarray(y), jnp.asarray(fails_b),
+                                       jnp.asarray(dist_b), **kw))
+        got = TQS.update_y(_t(y), _t(fails_b), _t(dist_b), **kw)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.view(np.uint32))
+    st = TQS.uniform(nb, 0.25)
+    assert st.anchor is None
+    np.testing.assert_array_equal(st.y.numpy(),
+                                  np.asarray(JQS.uniform(nb, 0.25).y))
+    assert TQS.as_qstate(st) is st
+    promoted = TQS.as_qstate(_t(y[0]), anchor=_t(y[1]))
+    np.testing.assert_array_equal(promoted.y.numpy(), y[0])
+    qs = convert.qstate_from_numpy(y[0], y[1], device="cpu")
+    assert qs.y.dtype == torch.float32 and qs.anchor.device.type == "cpu"
+    np.testing.assert_array_equal(qs.anchor.numpy(), y[1])
+
+
+def _round_f32(x):
+    """The f32 nearest the exact rational ``x``, ties to even."""
+    from fractions import Fraction
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(np.float32(c).view(np.uint32)) & 1))
+
+
+@pytest.mark.parametrize("case", ["ties", "far_apart"])
+def test_fma_f32_rounds_once(case):
+    """fma_f32 equals the exactly rounded a*b + c, and fma_f32_abs_amax
+    its rows' largest magnitude.  "ties": the exact sum lies just short of
+    an f32 tie, which a sum rounded to nearest in f64 would land on (and
+    then round the wrong way); "far_apart": |c| is tens of times |a*b|, so
+    the f64 sum is inexact."""
+    from fractions import Fraction
+    rng = np.random.RandomState(5)
+    n = 256
+    if case == "ties":
+        # c has an odd last bit; a*b = ulp(c)/2 * (1 - 2^-2k) exactly
+        c = (rng.randint(1 << 23, 1 << 24, n) | 1).astype(np.float32)
+        c = (c * np.float32(2.0) ** rng.randint(-40, 0, n)).astype(np.float32)
+        c *= rng.choice([-1, 1], n).astype(np.float32)
+        k = rng.randint(15, 21, n)
+        a = (1 + np.float32(2.0) ** -k).astype(np.float32)
+        b = (np.spacing(np.abs(c)) / 2 * (1 - np.float32(2.0) ** -k)
+             * np.sign(c)).astype(np.float32)
+    else:
+        a = (0.02 * rng.randn(n)).astype(np.float32)
+        b = (0.5 + rng.rand(n)).astype(np.float32)
+        c = rng.randn(n).astype(np.float32)
+    got = TL.fma_f32(_t(a), _t(b), _t(c)).numpy()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], dtype=np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    rows = TL.fma_f32_abs_amax(*(_t(v.reshape(16, 16)) for v in (a, b, c)))
+    np.testing.assert_array_equal(
+        rows.numpy(), np.abs(want).reshape(16, 16).max(axis=1))
+    if case == "ties":
+        twice = (a.astype(np.float64) * b + c).astype(np.float32)
+        assert (twice != want).all()

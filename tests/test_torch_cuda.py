@@ -90,6 +90,52 @@ def test_decode_batched_matches_plain(cuda, q, mode):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+def test_decode_single_matches_plain(cuda, q):
+    """Every mode of the single-payload decode at n = 2^20 with random
+    per-bucket sides: the kernel rounds the same steps as the plain
+    version, so points are bitwise too."""
+    n, bucket = 1 << 20, 4096
+    rng = np.random.RandomState(q + 2)
+    _, u, a, sides = _inputs(n, bucket, q + 2)
+    words = rng.randint(0, 1 << 32, TL.packed_len(n, TL.bits_for_q(q)),
+                        dtype=np.uint64).astype(np.uint32).view(np.int32)
+    ref = (0.25 * a).astype(np.float32)
+    for mode, r, avg in (("coords", None, None), ("coords", ref, None),
+                         ("point", None, None), ("point", ref, None),
+                         ("point", None, 3), ("point", ref, 1)):
+        for s, b in ((_t(sides), bucket), (float(sides[0]), None),
+                     (_t(np.repeat(sides, bucket)), None)):
+            rt = None if r is None else _t(r)
+            want = TRef.lattice_decode_ref(
+                _t(words), _t(a), _t(u), s, q=q, bits=TL.bits_for_q(q), n=n,
+                avg_cnt=avg, mode=mode, ref=rt, bucket=b)
+            before = _build.LAUNCHES["lattice_decode"]
+            got = TK.lattice_decode(
+                _t(words, cuda), _t(a, cuda), _t(u, cuda),
+                s.to(cuda) if isinstance(s, torch.Tensor) else s, q=q,
+                avg_cnt=avg, mode=mode,
+                ref=None if rt is None else rt.to(cuda), bucket=b)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["lattice_decode"] == before + 1
+            np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                          err_msg=f"{mode} {avg}")
+
+
+def test_decode_single_raises_outside_the_rules(cuda):
+    x = torch.zeros(64, device=cuda)
+    w = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="power of two"):
+        TK.lattice_decode(w, x, x, 0.5, q=2)              # 1-bit colors
+    with pytest.raises(ValueError, match="n >= 32"):
+        TK.lattice_decode(w, x[:31], x[:31], 0.5, q=16)
+    with pytest.raises(ValueError, match="is on"):
+        TK.lattice_decode(w.cpu(), x, x, 0.5, q=16)
+    with pytest.raises(ValueError, match="per-bucket|do not fit|shape"):
+        TK.lattice_decode(w, x, x, torch.ones(3, device=cuda), q=16,
+                          bucket=16)
+
+
 @pytest.mark.parametrize("d", [4, 128, 4096, 16384])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwht_matches_plain(cuda, d, dtype):
@@ -124,3 +170,34 @@ def test_round_on_card_bitwise_equals_cpu_round(cuda, anchored):
             server.receive(c.payload())
         means.append(server.finalize()[0].cpu().numpy())
     np.testing.assert_array_equal(means[0], means[1])
+
+
+def test_star_over_nccl_matches_cpu(cuda):
+    """A one-rank NCCL group (tensors cross as they are, no host staging):
+    the star's mean and telemetry on the card equal the CPU's bit for
+    bit."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch import random as TR
+    from repro_torch.dist import collectives as TC
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        x = np.random.RandomState(3).randn(5000).astype(np.float32)
+        cfg = QSyncConfig(q=16, bucket=1024)
+        outs = []
+        for dev, group in ((cuda, None), ("cpu", gloo)):
+            o, aux = TC.allgather_allreduce_mean(
+                _t(x, dev), torch.full((5,), 0.5, device=dev), TR.PRNGKey(4),
+                cfg, group)
+            outs.append((o.cpu().numpy(), aux.dist_b.cpu().numpy()))
+        np.testing.assert_array_equal(outs[0][0], outs[1][0])
+        np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    finally:
+        dist.destroy_process_group()

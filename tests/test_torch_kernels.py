@@ -175,3 +175,75 @@ def test_kernel_wrappers_reject_what_no_kernel_takes():
             fwht_cuda(torch.zeros((2, d)))
     with pytest.raises(ValueError, match="f32 or bf16"):
         fwht_cuda(torch.zeros((2, 16), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("q", [4, 16, 256])
+@pytest.mark.parametrize("kind", ["scalar", "coord", "bucket"])
+def test_lattice_decode_single(q, kind):
+    """The single-payload decode against the reference's (its Pallas
+    kernel in interpret mode): coords bitwise; points, with ``ref`` and the
+    running-average epilogue, within 2 ulp of the largest term summed,
+    because the reference's compiled kernel may fuse ``(k+u)*s + ref`` and
+    ``z + anchor*avg_cnt`` into fused multiply-adds where the port rounds
+    each step (the CUDA kernel rounds as the plain version does)."""
+    n, bucket = 1000, 128
+    x, u, a, sides = _enc_inputs(n, bucket, q + 3)
+    js, ts, tb = _side_forms(kind, sides, n, bucket)
+    bits = TL.bits_for_q(q)
+    words = np.random.RandomState(q).randint(
+        0, 1 << 32, TL.packed_len(n, bits), dtype=np.uint64).astype(np.uint32)
+    ref = (0.5 * x).astype(np.float32)
+    tw = _t(words.view(np.int32))
+    for mode, r, avg in (("coords", None, None), ("coords", ref, None),
+                         ("point", None, None), ("point", ref, None),
+                         ("point", ref, 3), ("point", None, 1)):
+        want = np.asarray(JK.lattice_decode(
+            jnp.asarray(words), jnp.asarray(a), jnp.asarray(u), js, q=q,
+            avg_cnt=avg, mode=mode,
+            ref=None if r is None else jnp.asarray(r)))
+        TK.reset_dispatch_counts()
+        got = TK.lattice_decode(tw, _t(a), _t(u), ts, q=q, avg_cnt=avg,
+                                mode=mode, ref=None if r is None else _t(r),
+                                bucket=tb).numpy()
+        assert TK.DISPATCH_COUNTS["lattice_decode"] == 1
+        assert TK.DISPATCH_COUNTS["lattice_decode_batched"] == 0
+        if mode == "coords":
+            np.testing.assert_array_equal(got, want)
+        else:
+            # 2 ulp of the largest intermediate, (k+u)*s or its sum with
+            # ref or anchor*avg_cnt, scaled by the epilogue's 1/(avg_cnt+1)
+            k = TK.lattice_decode(tw, _t(a), _t(u), ts, q=q, mode="coords",
+                                  ref=None if r is None else _t(r),
+                                  bucket=tb).numpy()
+            z = (k + u.astype(np.float64)) * np.broadcast_to(
+                np.asarray(js, np.float64), (n,))
+            zr = z + (0.0 if r is None else r)
+            big = np.maximum.reduce([np.abs(z), np.abs(zr),
+                                     np.abs(a) * (avg or 0)])
+            tol = 2 * np.spacing(big.astype(np.float32)) / ((avg or 0) + 1)
+            assert np.all(np.abs(got - want) <= tol), (mode, avg)
+
+
+def test_lattice_decode_single_rejects_what_no_kernel_takes():
+    from repro_torch.kernels.lattice_decode import lattice_decode_cuda
+    from repro_torch.kernels import ref as TRef
+
+    x = torch.zeros(64)
+    w = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        lattice_decode_cuda(w, x, x, 0.5, q=12)
+    with pytest.raises(ValueError, match="n >= 32"):
+        lattice_decode_cuda(w, x[:31], x[:31], 0.5, q=16)
+    with pytest.raises(ValueError, match="cannot hold"):
+        lattice_decode_cuda(w[:7], x, x, 0.5, q=16)
+    with pytest.raises(ValueError, match="one payload"):
+        lattice_decode_cuda(torch.zeros((2, 8), dtype=torch.int32), x, x,
+                            0.5, q=16)
+    with pytest.raises(ValueError, match="mode"):
+        lattice_decode_cuda(w, x, x, 0.5, q=16, mode="points")
+    for fn in (lattice_decode_cuda, TK.lattice_decode):
+        with pytest.raises(ValueError, match="avg_cnt"):
+            fn(w, x, x, 0.5, q=16, mode="coords", avg_cnt=2)
+    with pytest.raises(ValueError, match="avg_cnt"):
+        TRef.lattice_decode_ref(w, x, x, 0.5, q=16, bits=4, n=64,
+                                mode="coords", avg_cnt=2)
