@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's aggregation round and quantized
-collectives on one CUDA card.
+"""Drive the PyTorch/CUDA port's aggregation round, quantized collectives,
+flash attention and the paper's algorithms on one CUDA card.
 
     python3 chip_smoke.py [--seed N]   # d = 277,845,504; 16 clients; 4 ranks
 
@@ -43,15 +43,36 @@ nothing of the JAX package.  The script
    sealed drain bit for bit;
 7. times the round's costs outside the kernels at full width (the threefry
    draws, the anchor digest, one CRC-32 pass over a frame);
-8. prints the ``kernels`` line, then the ``ok`` line last.
+8. runs attention through ``ops.flash_attention`` at two models' full
+   widths: qwen3-32b prefill (64 query heads x head_dim 128, K/V expanded
+   from its 8 KV heads, one sequence of ``prefill_32k``'s 32,768 tokens, the
+   batch cut from 32 to 1; bf16, causal) and granite-moe-1b-a400m training
+   (16 heads x 64, K/V from 8 KV heads, 8 sequences of ``train_4k``'s 4,096
+   tokens, the batch cut from 256 to 8; f32, causal and not).  It times the
+   kernel, holds its output on the first 2 of BH against the plain version
+   (which holds a (BH, S, S) f32 score tensor, so it runs 2 of BH at a
+   time), times the plain version over all of BH in chunks of 2, and times
+   ``scaled_dot_product_attention`` on the same tensors as the library call
+   (used nowhere in the port);
+9. runs the paper's algorithms (``repro_torch.core``) on the card: at
+   d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
+   of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
+   butterfly and variance reduction, each checked for ``decode_ok`` and
+   against the exact mean within the lattice bound; at d = 2^24 a roundtrip
+   of each of the ten compressors and Algorithm 5 with y0 ten times too
+   small (it must escalate); at d = 2^18 with 8 machines the four DME
+   functions give the same bits on the card as on the CPU.  This phase
+   launches none of the five kernels (the rotations there are the plain
+   transform), and checks that;
+10. prints the ``kernels`` line, then the ``ok`` line last.
 
 Every count of kernel launches is set to 0 just before each main path
-(rounds A and B; each rank's collectives) and read just after it; a
-kernel of a path that was not launched there fails the run, and the
-``kernels`` line sums the counts of both paths over all ranks.  Any
-failed check raises before the last line is printed.  Without a CUDA
-device, or without the port beside it, the script exits with a nonzero
-code and prints no result.
+(rounds A and B; each rank's collectives; the attention phase; the
+paper-algorithms phase) and read just after it; a kernel of a path that
+was not launched there fails the run, and the ``kernels`` line sums the
+counts of the paths over all ranks.  Any failed check raises before the
+last line is printed.  Without a CUDA device, or without the port beside
+it, the script exits with a nonzero code and prints no result.
 """
 from __future__ import annotations
 
@@ -70,6 +91,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 on the tensor cores, dense
 SLICE = 1 << 24                  # coordinates compared against the plain version
 FULL_D = 277_845_504             # whisper-small's parameter count
 CLIENTS = 16                     # clients per full-width round
@@ -84,7 +106,23 @@ KERNEL_SOURCES = {
                                "src/repro/kernels/lattice_decode.py:180"),
     "fwht": ("src/repro_torch/kernels/csrc/fwht.cu",
              "src/repro/kernels/fwht.py:95"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:62"),
 }
+# the kernels the rounds and the collectives launch
+COLLECTIVE_KERNELS = ("lattice_encode", "lattice_decode",
+                      "lattice_decode_batched", "fwht")
+# (label, query heads, KV heads, head_dim, tokens, sequences, dtype, causal)
+ATTENTION_CASES = (
+    ("qwen3-32b prefill_32k", 64, 8, 128, 32_768, 1, "bfloat16", (True,)),
+    ("granite-moe-1b-a400m train_4k", 16, 8, 64, 4_096, 8, "float32",
+     (True, False)),
+)
+# (rtol, atol) of the kernel against its plain version.  Both compute in
+# f32 and round once to the output type, so bf16 outputs differ by at most
+# one bf16 step, 2^-7 of the value (rtol 1e-2 leaves a margin of 1.28);
+# f32 outputs differ only by the order of the sums.
+ATTENTION_TOL = {"bfloat16": (1e-2, 1e-5), "float32": (2e-4, 2e-4)}
 
 
 class SmokeError(RuntimeError):
@@ -116,9 +154,10 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> "tuple[float, str]":
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> "tuple[float, str]":
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -787,7 +826,7 @@ def collectives(seed: int) -> dict:
                 p.join()
     ranks = [results[r] for r in range(WORLD)]
     launches = {k: sum(r["launches"][k] for r in ranks)
-                for k in ranks[0]["launches"]}
+                for k in COLLECTIVE_KERNELS}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the collectives")
     say("collectives", world=WORLD, d=FULL_D, wall_s=time.perf_counter() - t0,
@@ -829,6 +868,251 @@ def host_costs(torch, d: int, seed: int) -> None:
     zlib.crc32(frame)
     out["crc32_frame"] = time.perf_counter() - t0
     say("host_costs", seconds=out, frame_bytes=len(frame))
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: attention at full width
+# ---------------------------------------------------------------------------
+
+def attention_inputs(torch, heads: int, kv_heads: int, hd: int, seq: int,
+                     batch: int, dtype, seed: int):
+    """q (batch*heads, seq, hd) and k, v drawn for ``kv_heads`` heads and
+    expanded to ``heads`` (grouped-query attention), in ``dtype``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(batch * heads, seq, hd, generator=g, device=dev).to(dtype)
+
+    def kv():
+        t = torch.randn(batch, kv_heads, seq, hd, generator=g, device=dev)
+        return (t.to(dtype).repeat_interleave(heads // kv_heads, dim=1)
+                .reshape(batch * heads, seq, hd))
+    k = kv()
+    return q, k, kv()
+
+
+def attention(torch, seed: int):
+    """The attention phase.  The main path is every ``ops.flash_attention``
+    call at the full shapes (one kept, then the timed ones); the counts are
+    set to 0 before it and read after it.  The comparison with the plain
+    version reuses the kept outputs and launches nothing."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import _build, ops, ref
+
+    torch.cuda.empty_cache()
+    cases = []
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for label, heads, kvh, hd, seq, batch, dt, causals in ATTENTION_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = attention_inputs(torch, heads, kvh, hd, seq, batch, dtype,
+                                   seed)
+        for causal in causals:
+            o = ops.flash_attention(q, k, v, causal=causal)
+            ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                            causal=causal))
+            cases.append(dict(label=label, dtype=dt, causal=causal,
+                              qkv=(q, k, v), out=o, ms=ms))
+        del q, k, v
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = _build.LAUNCHES["flash_attention"]   # read just after the path
+    check(launches > 0, "kernel flash_attention was not launched on the "
+          "attention path")
+
+    results = []
+    for c in cases:
+        q, k, v = c.pop("qkv")
+        o = c.pop("out")
+        bh, sq, hd = q.shape
+        causal = c["causal"]
+        check(tuple(o.shape) == tuple(q.shape) and o.dtype == q.dtype
+              and bool(torch.isfinite(o).all()),
+              f"attention {c['label']}: not a finite {tuple(q.shape)} "
+              f"{q.dtype} output")
+        want = ref.flash_attention_ref(q[:2], k[:2], v[:2], causal=causal)
+        rtol, atol = ATTENTION_TOL[c["dtype"]]
+        err = max_abs_err(torch, o[:2], want)
+        # the largest |diff| as a share of its limit atol + rtol |want|
+        share = float(((o[:2].float() - want.float()).abs()
+                       / (atol + rtol * want.float().abs())).max())
+        check(share <= 1.0,
+              f"flash_attention disagrees with its plain version on "
+              f"{c['label']} (causal={causal}): max |diff| = {err}, "
+              f"{share} of rtol={rtol}, atol={atol}")
+        del want
+
+        def plain():
+            for h0 in range(0, bh, 2):
+                ref.flash_attention_ref(q[h0:h0 + 2], k[h0:h0 + 2],
+                                        v[h0:h0 + 2], causal=causal)
+        plain_ms = cuda_ms(torch, plain, reps=1)
+
+        def library():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal)
+        lib_ms = cuda_ms(torch, library)
+        elt = q.element_size()
+        useful = (2 * bh * hd * sq * (sq + 1) if causal
+                  else 4 * bh * sq * sq * hd)
+        b, by = bound(4 * bh * sq * hd * elt, useful,
+                      BF16_OPS_PER_S if c["dtype"] == "bfloat16"
+                      else F32_OPS_PER_S)
+        c.update(shape=f"BH={bh}, S={sq}, D={hd}", plain_ms=plain_ms,
+                 bound_ms=b, bound_by=by, library_ms=lib_ms, max_abs_err=err,
+                 rtol=rtol, atol=atol, share_of_limit=share, useful_tflop=useful / 1e12,
+                 tflop_per_s=useful / c["ms"] / 1e9)
+        say("attention", **c)
+        results.append(c)
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    say("attention_path", launches=launches, seconds=path_s)
+    first = results[0]
+    entry = {k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+    entry["max_abs_err"] = max(r["max_abs_err"] for r in results)
+    return entry, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the paper's algorithms
+# ---------------------------------------------------------------------------
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def paper_algorithms(torch, seed: int) -> None:
+    """Algorithms 3/4/5, the butterfly, variance reduction and the ten
+    compressors of ``repro_torch.core`` on the card; every check raises."""
+    import numpy as np
+
+    from repro_torch import random as R
+    from repro_torch.core import compressors as Cmp
+    from repro_torch.core import dme as DME
+    from repro_torch.core import error_detect as ED
+    from repro_torch.core import rotation as Rot
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # --- the four DME functions at full width, 4 machines
+    n, d, y = 4, FULL_D, 0.25
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randn(d, generator=g, device=dev)
+    xs = torch.stack([client_vector(torch, base, seed, i) for i in range(n)])
+    del base
+    exact = xs[0].to(torch.float64)
+    for i in range(1, n):
+        exact += xs[i].to(torch.float64)
+    exact /= n
+    sigma, alpha = 0.02, 16.0          # the inputs' spread; y_vr = 0.32
+    y_vr = 2 * sigma * (alpha * n) ** 0.5
+    # error limits: stochastic rounding moves a coordinate by under one side
+    # per quantization and the star and tree quantize twice on every path
+    # (the tree's inner averages halve the child's error); the dithered
+    # butterfly moves it by at most half a side per round
+    runs = (
+        ("star", lambda: DME.mean_estimation_star(
+            xs, y, Cmp.LatticeQ(q=16), R.PRNGKey(seed + 1)), 2 * 2 * y / 15),
+        ("tree_m4", lambda: DME.mean_estimation_tree(
+            xs, y, m=4, key=R.PRNGKey(seed + 2)), 2 * 2 * y / 63),
+        ("butterfly", lambda: DME.butterfly_mean(
+            xs, y, Cmp.LatticeQ(q=16), R.PRNGKey(seed + 3)),
+         0.51 * 2 * y / 15 * 2),
+        ("variance_reduction", lambda: DME.variance_reduction(
+            xs, sigma, Cmp.LatticeQ(q=16), R.PRNGKey(seed + 4), alpha=alpha),
+         2 * 2 * y_vr / 15),
+    )
+    full = {}
+    for name, fn, lim in runs:
+        res, sec = _timed(torch, fn)
+        check(tuple(res.est.shape) == (n, d)
+              and bool(torch.isfinite(res.est).all()),
+              f"{name}: not a finite ({n}, {d}) output")
+        check(bool(res.decode_ok), f"{name}: outputs disagree across machines")
+        err = max(float((res.est[r].to(torch.float64) - exact).abs().max())
+                  for r in range(n))
+        check(err <= lim + 1e-5, f"{name}: max |est - exact| = {err} > {lim}")
+        full[name] = dict(seconds=sec, max_abs_err=err, limit=lim,
+                          bits_per_machine=int(res.bits_per_machine[0]))
+        del res
+        torch.cuda.empty_cache()
+    del xs, exact
+    torch.cuda.empty_cache()
+
+    # --- each compressor once at d = 2^24, anchored near its input
+    d2 = 1 << 24
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    x = torch.randn(d2, generator=g, device=dev)
+    a = x + 0.02 * torch.randn(d2, generator=g, device=dev)
+    ctx = Cmp.CompressorCtx(y=y, diag=Rot.rotation_keypair(R.PRNGKey(seed),
+                                                           d2, device=dev))
+    comps = {}
+    for name in Cmp.ALL_COMPRESSORS:
+        comp = Cmp.make_compressor(name)
+        z, sec = _timed(torch, lambda: comp.roundtrip(x, ctx, R.PRNGKey(seed),
+                                                      anchor=a))
+        check(tuple(z.shape) == (d2,) and bool(torch.isfinite(z).all()),
+              f"compressor {name}: not a finite ({d2},) output")
+        wb = comp.wire_bytes(d2)
+        check(0 < wb and (name == "fp32" or wb < 4 * d2),
+              f"compressor {name}: {wb} wire bytes")
+        comps[name] = dict(seconds=sec, wire_bytes=wb,
+                           max_abs_err=float((z - x).abs().max()))
+        del z
+    lq_lim = 2 * y / 15
+    check(comps["lq"]["max_abs_err"] < lq_lim,
+          f"lq: max |z - x| = {comps['lq']['max_abs_err']} >= s = {lq_lim}")
+
+    # --- Algorithm 5 with y0 ten times too small: it must escalate
+    y_true = float(2 * (x - a).abs().max())
+    ra, sec = _timed(torch, lambda: ED.robust_agreement(
+        x, a, y_true / 10, 16, R.PRNGKey(seed + 6)))
+    ra_err = float((ra["z"] - x).abs().max())
+    check(ra["ok"] and ra["iters"] >= 2,
+          f"robust_agreement: ok={ra['ok']} after {ra['iters']} iterations")
+    check(ra_err < y_true, f"robust_agreement: max |z - x_u| = {ra_err}")
+    robust = dict(seconds=sec, iters=ra["iters"], bits=ra["bits"],
+                  max_abs_err=ra_err, y_true=y_true)
+    del x, a, ctx, ra
+    torch.cuda.empty_cache()
+
+    # --- card == CPU, bit for bit, at d = 2^18 with 8 machines
+    rng = np.random.RandomState(seed)
+    small = (rng.randn(1 << 18) * 100
+             + 0.05 * rng.randn(8, 1 << 18)).astype(np.float32)
+    ys = float(2 * np.abs(small - small.mean(0)).max())
+    for name, fn in (
+            ("star", lambda X: DME.mean_estimation_star(
+                X, ys, Cmp.LatticeQ(q=16), R.PRNGKey(1))),
+            ("tree", lambda X: DME.mean_estimation_tree(
+                X, ys, m=8, key=R.PRNGKey(2))),
+            ("butterfly", lambda X: DME.butterfly_mean(
+                X, ys, Cmp.LatticeQ(q=16), R.PRNGKey(3))),
+            ("variance_reduction", lambda X: DME.variance_reduction(
+                X, 0.05, Cmp.LatticeQ(q=64), R.PRNGKey(4)))):
+        on = [fn(torch.from_numpy(small).to(dv)) for dv in (dev, "cpu")]
+        check(torch.equal(on[0].est.cpu().view(torch.int32),
+                          on[1].est.view(torch.int32))
+              and bool(on[0].decode_ok) and bool(on[1].decode_ok),
+              f"small {name}: the card's outputs differ from the CPU's")
+    phase_s = time.perf_counter() - t_phase
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(not launched, f"the paper-algorithms phase launched {launched}")
+    say("paper_algorithms", d=FULL_D, machines=n, y=y, full_width=full,
+        compressors_d=d2, compressors=comps, robust_agreement=robust,
+        small_card_equals_cpu=True, kernel_launches=0,
+        note="launches none of the five kernels", seconds=phase_s)
 
 
 def main() -> int:
@@ -880,10 +1164,12 @@ def main() -> int:
     counts = rounds_ab(torch, FULL_D, CLIENTS, args.seed)
     torch.cuda.empty_cache()
     coll = collectives(args.seed)
-    counts = {k: counts.get(k, 0) + coll.get(k, 0)
-              for k in KERNEL_SOURCES}
+    counts = {k: counts[k] + coll[k] for k in COLLECTIVE_KERNELS}
     small_rounds(torch, args.seed)
     host_costs(torch, FULL_D, args.seed)
+    checks["flash_attention"], counts["flash_attention"] = attention(
+        torch, args.seed)
+    paper_algorithms(torch, args.seed)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -70,14 +70,20 @@ def shared_offset(key, shape, *, device=None) -> torch.Tensor:
     return _random.uniform(key, shape, -0.5, 0.5, device=device)
 
 
-def encode_coords(x: torch.Tensor, s, u: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
-    """Integer lattice coordinates ``round(x/s - u)`` (dithered, unbiased);
-    with no ``u``, plain nearest rounding."""
+def encode_coords(x: torch.Tensor, s, u: Optional[torch.Tensor] = None,
+                  *, key=None) -> torch.Tensor:
+    """Integer lattice coordinates of x, unbiasedly: ``round(x/s - u)``
+    with a shared offset ``u`` (dithered); else, with ``key``, stochastic
+    rounding ``floor(x/s) + (frac > r)`` with ``r = uniform(key, x.shape)``
+    drawn on x's device; with neither, plain nearest rounding (biased)."""
     t = x.to(torch.float32) / torch.as_tensor(s, dtype=torch.float32,
                                               device=x.device)
     if u is not None:
         t = t - u
+    elif key is not None:
+        r = _random.uniform(key, tuple(x.shape), device=x.device)
+        lo = torch.floor(t)
+        return (lo + ((t - lo) > r)).to(torch.int32)
     return torch.round(t).to(torch.int32)
 
 
@@ -111,6 +117,38 @@ def coords_to_point(k: torch.Tensor, s, u: Optional[torch.Tensor] = None,
         t = t + u
     return (t * torch.as_tensor(s, dtype=torch.float32, device=k.device)
             ).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# One-call encode/decode API (unpacked colors; packing lives in kernels/)
+# ---------------------------------------------------------------------------
+
+def lattice_encode(x: torch.Tensor, y, spec: LatticeSpec, key=None,
+                   u: Optional[torch.Tensor] = None):
+    """Encode x given distance bound y.  Returns (colors int32, side s).
+
+    With ``u`` the shared offset dithers; else with ``key`` the rounding
+    is stochastic (``uniform`` draws on x's device); else it is nearest."""
+    s = spec.side(y)
+    return color_of(encode_coords(x, s, u, key=key), spec.q), s
+
+
+def lattice_decode(colors: torch.Tensor, anchor: torch.Tensor, y,
+                   spec: LatticeSpec, u: Optional[torch.Tensor] = None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Decode colors against the receiver's anchor vector."""
+    s = spec.side(y)
+    k = decode_coords(colors, anchor, s, u, q=spec.q)
+    return coords_to_point(k, s, u, dtype)
+
+
+def decode_failure(z: torch.Tensor, anchor: torch.Tensor, y) -> torch.Tensor:
+    """Error-detection surrogate (paper §5): True when any decoded
+    coordinate lies farther than ``1.5 y`` from the anchor, i.e. the mod-q
+    class wrapped.  Returns a 0-d bool tensor."""
+    yv = torch.as_tensor(y, dtype=torch.float32, device=z.device)
+    return torch.any((z.to(torch.float32) - anchor.to(torch.float32)).abs()
+                     > 1.5 * yv)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor

@@ -27,13 +27,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lattice_encode", "lattice_decode", "fwht")
+SOURCES = ("lattice_encode", "lattice_decode", "fwht", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 LAUNCHES = {"lattice_encode": 0, "lattice_decode": 0,
-            "lattice_decode_batched": 0, "fwht": 0}
+            "lattice_decode_batched": 0, "fwht": 0, "flash_attention": 0}
 
 _libs: "dict[str, ctypes.CDLL]" = {}
 _lock = threading.Lock()

@@ -6,9 +6,10 @@ CUDA tensor launches the hand-written kernel, or the call raises.  There is
 no fallback from the card to the plain version.
 
 Shape rules: the reference's.  The CUDA kernels take q a power of two
-with 2, 4, 8 or 16 bits per color, n >= 32, and FWHT rows of d a power of
-two in [4, 16384].  Where the reference sends any other shape to its plain
-version, a CUDA tensor of that shape raises here.
+with 2, 4, 8 or 16 bits per color, n >= 32, FWHT rows of d a power of
+two in [4, 16384], and attention with Sq >= 16, Sq and Sk multiples of
+min(256, S), and head dim 64 or 128.  Where the reference sends any other
+shape to its plain version, a CUDA tensor of that shape raises here.
 
 ``DISPATCH_COUNTS`` keeps the reference's semantics: one count per
 decode call (single or batched), whichever device ran it, so a drain can
@@ -26,6 +27,7 @@ import torch
 import repro_torch.obs as _obs
 from repro_torch.core import lattice as L
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fwht import fwht_cuda
 from repro_torch.kernels.lattice_decode import (lattice_decode_batched_cuda,
                                                 lattice_decode_cuda)
@@ -186,3 +188,22 @@ def lattice_pack_coords(k: torch.Tensor, *, q: int) -> torch.Tensor:
     """Pack int32 lattice coordinates as mod-q color words (int32 bit
     view): k (..., n) -> (..., n_words)."""
     return _ref.lattice_pack_coords_ref(k, q=q, bits=L.bits_for_q(q))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Flash attention forward over (BH, S, D) tensors, scale 1/sqrt(D).
+
+    The reference takes blocks ``bq = min(256, Sq)``, ``bk = min(256, Sk)``
+    and sends a shape its kernel does not take (Sq or Sk not a multiple
+    of its block, Sq < 16) to the plain version; here a CUDA tensor of
+    such a shape raises."""
+    if _on_cpu(q):
+        return _ref.flash_attention_ref(q, k, v, causal=causal)
+    sq, sk = q.shape[1], k.shape[1]
+    bq, bk = min(256, sq), min(256, sk)
+    if sq % bq or sk % bk or sq < 16:
+        raise ValueError(f"the flash_attention kernel takes Sq >= 16 and Sq, "
+                         f"Sk multiples of min(256, S); got Sq={sq}, Sk={sk}")
+    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal, bq=bq, bk=bk)

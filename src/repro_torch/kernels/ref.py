@@ -7,6 +7,7 @@ Packed words are int32 bit views throughout.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -104,3 +105,21 @@ def lattice_pack_coords_ref(k: torch.Tensor, *, q: int,
                             bits: int) -> torch.Tensor:
     """Packed mod-q color words of int32 lattice coordinates."""
     return L.pack_colors(L.color_of(k, q), bits)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain-softmax attention.  q: (BH, Sq, D); k/v: (BH, Sk, D) ->
+    (BH, Sq, D) in q's dtype, f32 inside, scale 1/sqrt(D).  Where causal,
+    a score with query position < key position (both counted from 0) is
+    replaced by -1e30."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(d)
+    if causal:
+        sq, sk = s.shape[-2:]
+        mask = (torch.arange(sq, device=s.device)[:, None]
+                >= torch.arange(sk, device=s.device)[None, :])
+        s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)

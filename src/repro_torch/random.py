@@ -13,7 +13,10 @@ This module reproduces exactly the calls the protocol makes, in JAX's
 * ``bits(key, shape)`` -> element ``i`` (row-major) is ``y0 ^ y1`` of
   ``threefry(key, (i >> 32, i & 0xFFFFFFFF))``;
 * ``uniform`` and ``rademacher`` from those bits as ``jax.random`` builds
-  them (mantissa fill, then shift and scale).
+  them (mantissa fill, then shift and scale);
+* ``randint``, ``permutation`` and ``normal`` as ``jax.random`` builds
+  them from ``split`` and ``bits`` (``normal`` only to ``allclose``: torch's
+  ``erfinv`` is not XLA's).
 
 A key is a pair of Python ints.  Bulk draws run on the caller's device in
 plain torch int64 masked to 32 bits (torch has no unsigned 32-bit
@@ -139,3 +142,49 @@ def rademacher(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
     def fn(v):
         return torch.where(_unit_floats(v) < 0.5, 1.0, -1.0)
     return _draw(key, shape, device, torch.float32, fn)
+
+
+def randint(key: Key, shape: Shape, minval: int, maxval: int, *,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32).
+
+    jax's algorithm: two 32-bit draws from ``split(key)``, combined as
+    ``(hi % span) * ((2^16 % span)^2 % span) + lo % span`` in wrapping
+    uint32 arithmetic, then ``% span``.  A span of 0 or less gives
+    ``minval``."""
+    minval, maxval = int(minval), int(maxval)
+    span = maxval - minval if maxval > minval else 1
+    k1, k2 = split(key)
+    hi = bits(k1, shape, device=device).to(torch.int64) & _M32
+    lo = bits(k2, shape, device=device).to(torch.int64) & _M32
+    mult = (((1 << 16) % span) ** 2 & _M32) % span
+    off = (((hi % span) * mult) & _M32) + lo % span
+    return ((off & _M32) % span + minval).to(torch.int32)
+
+
+def permutation(key: Key, n: int, *, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` (int32) sorted by
+    fresh 32-bit keys in ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each
+    round's key split off the last.  The sort is stable, as jax's is, so
+    tied keys keep their order."""
+    n = int(n)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
+    x = torch.arange(n, dtype=torch.int32, device=device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        sort_keys = bits(sub, (n,), device=device).to(torch.int64) & _M32
+        x = x[torch.sort(sort_keys, stable=True).indices]
+    return x
+
+
+def normal(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``:
+    ``sqrt(2) * erfinv(uniform(key, shape, nextafter(-1, 0), 1))``.  The
+    uniform draw is bitwise; torch's ``erfinv`` differs from XLA's
+    ``erf_inv`` in the last bits."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0, device=device)
+    # jax multiplies by sqrt(2) rounded to f32; torch would keep a Python
+    # float's double value in the product
+    return torch.erfinv(u) * float(torch.tensor(math.sqrt(2),
+                                                dtype=torch.float32))

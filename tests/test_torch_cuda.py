@@ -201,3 +201,78 @@ def test_star_over_nccl_matches_cpu(cuda):
         np.testing.assert_array_equal(outs[0][1], outs[1][1])
     finally:
         dist.destroy_process_group()
+
+
+def _qkv(bh, sq, sk, d, seed):
+    rng = np.random.RandomState(seed)
+    return tuple(_t(rng.randn(bh, s, d).astype(np.float32))
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(256, 256, True), (256, 256, False),
+                                          (80, 80, True), (256, 1024, False),
+                                          (512, 256, False)])
+def test_flash_attention_matches_plain(cuda, dtype, d, sq, sk, causal):
+    """Online softmax in 64 x 64 tiles against the plain softmax: both f32
+    inside, sums in another order; f32 at rtol = atol = 2e-4.  Both round
+    once to bf16, so bf16 outputs differ by at most one bf16 step, 2^-7 of
+    the value: rtol = 1e-2, atol = 1e-5.  (80, 80) leaves a ragged 16-row
+    tile."""
+    q, k, v = (a.to(dtype) for a in _qkv(3, sq, sk, d, seed=d + sq))
+    want = TRef.flash_attention_ref(q, k, v, causal=causal)
+    before = _build.LAUNCHES["flash_attention"]
+    got = TK.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-5)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_raises_outside_the_rules(cuda):
+    """A head dim the kernel is not built for, and a length the reference
+    sends to its plain version, raise on the card; nothing launches."""
+    before = _build.LAUNCHES["flash_attention"]
+    q, k, v = (a.to(cuda) for a in _qkv(2, 256, 256, 48, seed=0))
+    with pytest.raises(ValueError, match="D in"):
+        TK.flash_attention(q, k, v)
+    q, k, v = (a.to(cuda) for a in _qkv(2, 300, 300, 64, seed=0))
+    with pytest.raises(ValueError, match="multiples"):
+        TK.flash_attention(q, k, v)
+    assert _build.LAUNCHES["flash_attention"] == before
+
+
+def test_dme_on_card_bitwise_equals_cpu(cuda):
+    """The paper's algorithms draw and compute on the inputs' device; the
+    card's outputs equal the CPU's bit for bit."""
+    from repro_torch import random as TR
+    from repro_torch.core import compressors as TCmp
+    from repro_torch.core import dme as TD
+    from repro_torch.core import error_detect as TE
+
+    rng = np.random.RandomState(0)
+    xs = (rng.randn(4096) * 100 + 0.05 * rng.randn(8, 4096)).astype(np.float32)
+    y = float(2 * np.abs(xs - xs.mean(0)).max())
+    runs = (lambda X: TD.mean_estimation_star(X, y, TCmp.LatticeQ(q=16),
+                                              TR.PRNGKey(1)),
+            lambda X: TD.mean_estimation_tree(X, y, m=8, key=TR.PRNGKey(2)),
+            lambda X: TD.butterfly_mean(X, y, TCmp.LatticeQ(q=16),
+                                        TR.PRNGKey(3)),
+            lambda X: TD.variance_reduction(X, 0.05, TCmp.LatticeQ(q=64),
+                                            TR.PRNGKey(4)))
+    for fn in runs:
+        a, b = fn(_t(xs, cuda)), fn(_t(xs))
+        np.testing.assert_array_equal(a.est.cpu().numpy().view(np.uint32),
+                                      b.est.numpy().view(np.uint32))
+        assert bool(a.decode_ok) and bool(b.decode_ok)
+    xu = xs[0]
+    ra = [TE.robust_agreement(_t(xu, dv), _t(xu + 0.3, dv), 0.01, 16,
+                              TR.PRNGKey(5)) for dv in (cuda, "cpu")]
+    assert (ra[0]["iters"], ra[0]["bits"], ra[0]["ok"]) == \
+        (ra[1]["iters"], ra[1]["bits"], ra[1]["ok"])
+    assert ra[0]["ok"] and ra[0]["iters"] >= 2
+    np.testing.assert_array_equal(ra[0]["z"].cpu().numpy(), ra[1]["z"].numpy())
