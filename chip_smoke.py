@@ -43,17 +43,21 @@ nothing of the JAX package.  The script
    sealed drain bit for bit;
 7. times the round's costs outside the kernels at full width (the threefry
    draws, the anchor digest, one CRC-32 pass over a frame);
-8. runs attention through ``ops.flash_attention`` at two models' full
+8. runs attention through ``ops.flash_attention`` at three models' full
    widths: qwen3-32b prefill (64 query heads x head_dim 128, K/V expanded
    from its 8 KV heads, one sequence of ``prefill_32k``'s 32,768 tokens, the
-   batch cut from 32 to 1; bf16, causal) and granite-moe-1b-a400m training
-   (16 heads x 64, K/V from 8 KV heads, 8 sequences of ``train_4k``'s 4,096
-   tokens, the batch cut from 256 to 8; f32, causal and not).  It times the
+   batch cut from 32 to 1; bf16, causal), nemotron-4-340b prefill (96 x
+   192 from 8 KV heads, one 32,768-token sequence, the batch cut from 32;
+   bf16, causal) and granite-moe-1b-a400m training (16 heads x 64, K/V
+   from 8 KV heads, 8 sequences of ``train_4k``'s 4,096 tokens, the batch
+   cut from 256 to 8; f32, causal and not).  The bf16 cases are the wgmma
+   kernel's path, the f32 ones the CUDA-core kernel's.  It times the
    kernel, holds its output on the first 2 of BH against the plain version
    (which holds a (BH, S, S) f32 score tensor, so it runs 2 of BH at a
    time), times the plain version over all of BH in chunks of 2, and times
    ``scaled_dot_product_attention`` on the same tensors as the library call
-   (used nowhere in the port);
+   (used nowhere in the port), printing SDPA's own share of the kernel's
+   limit against the plain version as information;
 9. runs the paper's algorithms (``repro_torch.core``) on the card: at
    d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
    of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
@@ -62,15 +66,15 @@ nothing of the JAX package.  The script
    of each of the ten compressors and Algorithm 5 with y0 ten times too
    small (it must escalate); at d = 2^18 with 8 machines the four DME
    functions give the same bits on the card as on the CPU.  This phase
-   launches none of the five kernels (the rotations there are the plain
+   launches none of the kernels (the rotations there are the plain
    transform), and checks that;
 10. prints the ``kernels`` line, then the ``ok`` line last.
 
 Every count of kernel launches is set to 0 just before each main path
-(rounds A and B; each rank's collectives; the attention phase; the
-paper-algorithms phase) and read just after it; a kernel of a path that
-was not launched there fails the run, and the ``kernels`` line sums the
-counts of the paths over all ranks.  Any failed check raises before the
+(rounds A and B; each rank's collectives; the bf16 and the f32 attention
+paths; the paper-algorithms phase) and read just after it; a kernel of a
+path that was not launched there fails the run, and the ``kernels`` line
+sums the counts of the paths over all ranks.  Any failed check raises before the
 last line is printed.  Without a CUDA device, or without the port beside
 it, the script exits with a nonzero code and prints no result.
 """
@@ -108,6 +112,9 @@ KERNEL_SOURCES = {
              "src/repro/kernels/fwht.py:95"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "src/repro/kernels/flash_attention.py:62"),
 }
 # the kernels the rounds and the collectives launch
 COLLECTIVE_KERNELS = ("lattice_encode", "lattice_decode",
@@ -117,7 +124,15 @@ ATTENTION_CASES = (
     ("qwen3-32b prefill_32k", 64, 8, 128, 32_768, 1, "bfloat16", (True,)),
     ("granite-moe-1b-a400m train_4k", 16, 8, 64, 4_096, 8, "float32",
      (True, False)),
+    ("nemotron-4-340b prefill_32k", 96, 8, 192, 32_768, 1, "bfloat16",
+     (True,)),
 )
+# ops.flash_attention's kernel for each dtype (one launch count for both)
+ATTENTION_KERNEL = {"bfloat16": "flash_attention_wgmma",
+                    "float32": "flash_attention"}
+# the bf16 kernel's P.V takes two products (P split into bf16 hi and lo),
+# so its tensor cores issue 1.5x the useful operations
+BF16_ISSUED = 1.5
 # (rtol, atol) of the kernel against its plain version.  Both compute in
 # f32 and round once to the output type, so bf16 outputs differ by at most
 # one bf16 step, 2^-7 of the value (rtol 1e-2 leaves a margin of 1.28);
@@ -159,6 +174,21 @@ def bound(nbytes: float, ops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_counts(_build, name: str, ops) -> dict:
+    """How often each of ``ops`` occurs in the SASS of a built kernel
+    library (``cuobjdump -sass``, beside ``nvcc``): the wgmma kernel must
+    show HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+              for op in ops}
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          f"{name}'s SASS has no HGMMA or no UTMALDG: {counts}")
+    return dict(library=name, counts=counts)
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -890,20 +920,14 @@ def attention_inputs(torch, heads: int, kv_heads: int, hd: int, seq: int,
     return q, k, kv()
 
 
-def attention(torch, seed: int):
-    """The attention phase.  The main path is every ``ops.flash_attention``
-    call at the full shapes (one kept, then the timed ones); the counts are
-    set to 0 before it and read after it.  The comparison with the plain
-    version reuses the kept outputs and launches nothing."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    from repro_torch.kernels import _build, ops, ref
-
-    torch.cuda.empty_cache()
+def attention_path(torch, ops, _build, cases_in, seed: int):
+    """One main path: every ``ops.flash_attention`` call of ``cases_in`` at
+    the full shapes (one kept, then the timed ones), with the counts set to
+    0 before it and read after it."""
     cases = []
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    for label, heads, kvh, hd, seq, batch, dt, causals in ATTENTION_CASES:
+    for label, heads, kvh, hd, seq, batch, dt, causals in cases_in:
         dtype = getattr(torch, dt)
         q, k, v = attention_inputs(torch, heads, kvh, hd, seq, batch, dtype,
                                    seed)
@@ -917,63 +941,93 @@ def attention(torch, seed: int):
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = _build.LAUNCHES["flash_attention"]   # read just after the path
-    check(launches > 0, "kernel flash_attention was not launched on the "
-          "attention path")
+    return cases, launches, path_s
 
-    results = []
-    for c in cases:
-        q, k, v = c.pop("qkv")
-        o = c.pop("out")
-        bh, sq, hd = q.shape
-        causal = c["causal"]
-        check(tuple(o.shape) == tuple(q.shape) and o.dtype == q.dtype
-              and bool(torch.isfinite(o).all()),
-              f"attention {c['label']}: not a finite {tuple(q.shape)} "
-              f"{q.dtype} output")
-        want = ref.flash_attention_ref(q[:2], k[:2], v[:2], causal=causal)
-        rtol, atol = ATTENTION_TOL[c["dtype"]]
-        err = max_abs_err(torch, o[:2], want)
-        # the largest |diff| as a share of its limit atol + rtol |want|
-        share = float(((o[:2].float() - want.float()).abs()
-                       / (atol + rtol * want.float().abs())).max())
-        check(share <= 1.0,
-              f"flash_attention disagrees with its plain version on "
-              f"{c['label']} (causal={causal}): max |diff| = {err}, "
-              f"{share} of rtol={rtol}, atol={atol}")
-        del want
 
-        def plain():
-            for h0 in range(0, bh, 2):
-                ref.flash_attention_ref(q[h0:h0 + 2], k[h0:h0 + 2],
-                                        v[h0:h0 + 2], causal=causal)
-        plain_ms = cuda_ms(torch, plain, reps=1)
+def attention(torch, seed: int):
+    """The attention phase: two main paths, the bf16 cases (the wgmma
+    kernel) and the f32 cases (the CUDA-core kernel), each driven with the
+    counts set to 0 just before it and read just after.  The comparison
+    with the plain version reuses the kept outputs and launches nothing.
+    Returns {kernel: (kernels-line entry, launches)}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-        def library():
-            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                              SDPBackend.EFFICIENT_ATTENTION]):
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q[None], k[None], v[None], is_causal=causal)
-        lib_ms = cuda_ms(torch, library)
-        elt = q.element_size()
-        useful = (2 * bh * hd * sq * (sq + 1) if causal
-                  else 4 * bh * sq * sq * hd)
-        b, by = bound(4 * bh * sq * hd * elt, useful,
-                      BF16_OPS_PER_S if c["dtype"] == "bfloat16"
-                      else F32_OPS_PER_S)
-        c.update(shape=f"BH={bh}, S={sq}, D={hd}", plain_ms=plain_ms,
-                 bound_ms=b, bound_by=by, library_ms=lib_ms, max_abs_err=err,
-                 rtol=rtol, atol=atol, share_of_limit=share, useful_tflop=useful / 1e12,
-                 tflop_per_s=useful / c["ms"] / 1e9)
-        say("attention", **c)
-        results.append(c)
-        del q, k, v, o
-        torch.cuda.empty_cache()
-    say("attention_path", launches=launches, seconds=path_s)
-    first = results[0]
-    entry = {k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}
-    entry["max_abs_err"] = max(r["max_abs_err"] for r in results)
-    return entry, launches
+    from repro_torch.kernels import _build, ops, ref
+
+    torch.cuda.empty_cache()
+    out = {}
+    for dt, name in ATTENTION_KERNEL.items():
+        cases, launches, path_s = attention_path(
+            torch, ops, _build, [c for c in ATTENTION_CASES if c[6] == dt],
+            seed)
+        check(launches > 0, f"kernel {name} was not launched on the "
+              f"{dt} attention path")
+        results = []
+        for c in cases:
+            q, k, v = c.pop("qkv")
+            o = c.pop("out")
+            bh, sq, hd = q.shape
+            causal = c["causal"]
+            check(tuple(o.shape) == tuple(q.shape) and o.dtype == q.dtype
+                  and bool(torch.isfinite(o).all()),
+                  f"attention {c['label']}: not a finite {tuple(q.shape)} "
+                  f"{q.dtype} output")
+            want = ref.flash_attention_ref(q[:2], k[:2], v[:2],
+                                           causal=causal).float()
+            rtol, atol = ATTENTION_TOL[dt]
+            limit = atol + rtol * want.abs()
+            err = max_abs_err(torch, o[:2], want)
+            # the largest |diff| as a share of its limit atol + rtol |want|
+            share = float(((o[:2].float() - want).abs() / limit).max())
+            check(share <= 1.0,
+                  f"{name} disagrees with its plain version on "
+                  f"{c['label']} (causal={causal}): max |diff| = {err}, "
+                  f"{share} of rtol={rtol}, atol={atol}")
+
+            def library(n=bh):
+                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                  SDPBackend.EFFICIENT_ATTENTION]):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q[None, :n], k[None, :n], v[None, :n],
+                        is_causal=causal)[0]
+            # SDPA's own share of the same limit: information, not checked
+            sdpa_share = float(((library(2).float() - want).abs()
+                                / limit).max())
+            del want, limit
+
+            def plain():
+                for h0 in range(0, bh, 2):
+                    ref.flash_attention_ref(q[h0:h0 + 2], k[h0:h0 + 2],
+                                            v[h0:h0 + 2], causal=causal)
+            plain_ms = cuda_ms(torch, plain, reps=1)
+            lib_ms = cuda_ms(torch, library)
+            elt = q.element_size()
+            useful = (2 * bh * hd * sq * (sq + 1) if causal
+                      else 4 * bh * sq * sq * hd)
+            rate = BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S
+            b, by = bound(4 * bh * sq * hd * elt, useful, rate)
+            c.update(kernel=name, shape=f"BH={bh}, S={sq}, D={hd}",
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     library_ms=lib_ms, max_abs_err=err, rtol=rtol,
+                     atol=atol, share_of_limit=share,
+                     sdpa_share_of_limit=sdpa_share,
+                     useful_tflop=useful / 1e12,
+                     tflop_per_s=useful / c["ms"] / 1e9)
+            if dt == "bfloat16":
+                c["issued_bound_ms"], _ = bound(
+                    4 * bh * sq * hd * elt, BF16_ISSUED * useful, rate)
+            say("attention", **c)
+            results.append(c)
+            del q, k, v, o
+            torch.cuda.empty_cache()
+        say("attention_path", kernel=name, launches=launches,
+            seconds=path_s)
+        first = results[0]
+        entry = {k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+        entry["max_abs_err"] = max(r["max_abs_err"] for r in results)
+        out[name] = (entry, launches)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1112,7 +1166,7 @@ def paper_algorithms(torch, seed: int) -> None:
     say("paper_algorithms", d=FULL_D, machines=n, y=y, full_width=full,
         compressors_d=d2, compressors=comps, robust_agreement=robust,
         small_card_equals_cpu=True, kernel_launches=0,
-        note="launches none of the five kernels", seconds=phase_s)
+        note="launches none of the kernels", seconds=phase_s)
 
 
 def main() -> int:
@@ -1156,6 +1210,8 @@ def main() -> int:
         ptxas[name] = dict(max_registers=max(regs, default=None),
                            spill_store_bytes=sum(spills))
     say("build", seconds=time.perf_counter() - t0, built=built, ptxas=ptxas)
+    say("sass", **sass_counts(_build, "flash_attention_wgmma",
+                              ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR")))
 
     spec = wire.RoundSpec(round_id=1, d=FULL_D,
                           cfg=QSyncConfig(q=16, bucket=4096))
@@ -1167,8 +1223,8 @@ def main() -> int:
     counts = {k: counts[k] + coll[k] for k in COLLECTIVE_KERNELS}
     small_rounds(torch, args.seed)
     host_costs(torch, FULL_D, args.seed)
-    checks["flash_attention"], counts["flash_attention"] = attention(
-        torch, args.seed)
+    for name, (entry, launches) in attention(torch, args.seed).items():
+        checks[name], counts[name] = entry, launches
     paper_algorithms(torch, args.seed)
 
     kernels = []

@@ -1,182 +1,261 @@
-// Flash attention forward (online softmax), for Hopper (sm_90a).
+// Flash attention forward (online softmax) in f32 on the CUDA cores, for
+// Hopper (sm_90a).
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
-// (_flash_kernel).  For each (batch*head, query row) it computes
+// (_flash_kernel), for f32 inputs (bf16 inputs take
+// flash_attention_wgmma.cu).  For each (batch*head, query row) it computes
 //   out = softmax(scale * q . K^T, masked) . V,   scale = float32(1/sqrt(D)),
-// with q scaled before the product, scores, exponentials, the running max,
-// sum and accumulator all in f32, and out = acc / max(l, 1e-30) cast to the
-// input type.  Where causal, keys past the query's position (both counted
-// from 0) take no part; the reference writes -1e30 there, whose exponential
-// is exactly 0, so skipping them gives the same function.  Inputs are f32,
-// or bf16 widened with __bfloat162float (output through
-// __float2bfloat16_rn).  D is 64 or 128.
+// with q scaled before the product, as the reference does (here by
+// scale * log2(e), the exponentials being base 2), and the scores,
+// exponentials, running max, sum and accumulator in f32; out = acc /
+// max(l, 1e-30).  Where causal, keys past the query's position (both
+// counted from 0) take no part; the reference writes -1e30 there, whose
+// exponential is exactly 0, so p = 0 gives the same function.  D is 64,
+// 128 or 192.
 //
-// Bound on this card: operations.  Per query row and visible key it does
-// 2 D multiply-adds (q.k and p.v) and reads q, K, V, out once: at the
-// sequence lengths attention runs at, thousands of operations per byte.
+// Bound on this card: operations, at the f32 rate (TF32 would not hold the
+// f32 tolerance).  Per query row and visible key it does 2 D multiply-adds.
 //
-// Design (simple first): one block of 256 threads per (bh, 64-row query
-// tile).  The scaled query tile stays in shared memory; the key loop stages
-// one 64-key K tile, then the V tile in the same buffer, in shared memory
-// (rows padded by one float so that the column reads do not conflict).
-// Thread (ty, tx) of the 16 x 16 grid owns query rows ty + 16 i (i < 4):
-// it computes the 4 x 4 scores of those rows and keys tx + 16 j with f32
-// FMAs, the row max and sum reduce over the 16 lanes of the row with warp
-// shuffles, and the probabilities go through a shared 64 x 80 tile to the
-// P.V product, whose accumulator (4 rows x D/16 columns) and running max and
-// sum stay in registers.  Key tiles wholly above the diagonal are not
-// visited.  All products are f32 FMAs on the CUDA cores, so the kernel is
-// held to the card's f32 rate, about 1/15 of bf16 on the tensor cores.
-// A later redesign moves q.K^T and P.V to bf16 wgmma (scale folded in
-// after the product), feeds K/V tiles by TMA into a ring of shared-memory
-// stages, and keeps P in registers.  No allocation; the launch goes on the
-// caller's stream.
+// Design: one block of 256 threads per (bh, BQ = 32 RM query rows); thread
+// (ty, tx) of the 32 x 8 grid owns rows ty + 32 i (i < RM), keys tx + 8 j
+// (j < 8) of each 64-key tile and output columns 4 tx + 32 c .. + 3.  It
+// reads its operands as 16-byte loads from row-major shared tiles padded
+// by 4 floats (Q scaled, K, V, P), so each load feeds 6 to 13 FMAs: RM
+// rows x 8 keys from RM + 8 loads per 4 columns of D for the scores, RM
+// rows x D/8 columns from RM + 4 D/32 loads per 4 keys for P.V.  The row
+// max and sum reduce over the 8 lanes of a row with shuffles; a warp
+// writes and reads only its own rows of P.  K and V have a buffer each and
+// arrive by cp.async: V of a tile loads while its scores are computed, K
+// of the next tile while P.V runs.  Key tiles wholly above the diagonal
+// are not visited; in causal mode the block with the most key tiles starts
+// first; only tiles at the diagonal or the ragged end of K test masks.
+// All products are explicit f32 FMAs.  No allocation; the launch
+// goes on the caller's stream.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per block
 constexpr int BK = 64;             // keys per tile
-constexpr int TX = 16, TY = 16;    // thread grid
+constexpr int TX = 8, TY = 32;     // thread grid
 constexpr int THREADS = TX * TY;
-constexpr int RM = BQ / TY;        // query rows per thread
-constexpr int RN = BK / TX;        // keys per thread in a tile
-constexpr int LP = BK + TX;        // row stride of the P tile (rows ty and
-                                   // ty + 1 fall on opposite half-banks)
+constexpr int LP = BK + 8;         // row stride of P: the 4 rows of a warp
+                                   // fall 8 banks apart
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// query rows per thread: fewer at D = 192, whose accumulator and tiles
+// would not fit otherwise
+template <int D> __host__ __device__ constexpr int rows_per_thread() {
+  return D == 192 ? 2 : 4;
 }
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return (size_t)(BQ * (D + 1) + BK * (D + 1) + BQ * LP) * sizeof(float);
+  constexpr int LD = D + 4, BQ = TY * rows_per_thread<D>();
+  return (size_t)(BQ * LD + 2 * BK * LD + BQ * LP) * sizeof(float);
 }
 
-// rows x D of src (row stride D, rows from `row0`, `limit` rows valid) into
-// dst (row stride D + 1) as f32 times `mul` (exact for mul = 1); rows past
-// `limit` are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int limit, int rows, float mul) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] =
-        row0 + r < limit
-            ? __fmul_rn(to_f32(src[(int64_t)(row0 + r) * D + c]), mul)
-            : 0.f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the newest group done
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// BK rows of src (row stride D) from row `row0` into dst (row stride
+// D + 4); rows at or past `limit` are zero
+template <int D>
+__device__ __forceinline__ void load_kv(float* dst, const float* src,
+                                        int row0, int limit) {
+  constexpr int C4 = D / 4;
+  for (int i = threadIdx.x; i < BK * C4; i += THREADS) {
+    const int r = i / C4, c = 4 * (i % C4);
+    const bool valid = row0 + r < limit;
+    cp_async16(dst + r * (D + 4) + c,
+               src + (int64_t)(valid ? row0 + r : 0) * D + c, valid);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-                 float scale, int causal) {
-  constexpr int LD = D + 1;
-  constexpr int RD = D / TX;       // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                // BQ x LD
-  float* kv = qs + BQ * LD;        // BK x LD: K, then V
-  float* ps = kv + BK * LD;        // BQ x LP
+__device__ __forceinline__ float get(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The online-softmax step of one key tile for a thread's RM rows (row0 +
+// 32 i) and 8 keys (key0 + 8 j): scores in the log2 domain (q was scaled by
+// scale * log2(e)); P goes to the thread's places in `ps`, the running
+// max, sum and accumulator are updated.  MASK: some keys of the tile may be
+// past Sk or, where causal, past a row's position, and get p = 0.
+template <bool MASK, int RM, int NC>
+__device__ __forceinline__ void softmax_tile(float (&sc)[RM][8], float* m,
+                                             float* l, float (&acc)[RM][4 * NC],
+                                             float* ps, int row0, int key0,
+                                             int sk, int causal, int ps_off) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = row0 + TY * i;
+    bool vis[8];
+    float mx = NEG;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = key0 + TX * j;
+      vis[j] = !MASK || (key < sk && (!causal || key <= row));
+      if (vis[j]) mx = fmaxf(mx, sc[i][j]);
+    }
+#pragma unroll
+    for (int off = TX / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p = vis[j] ? exp2f(__fsub_rn(sc[i][j], m_new)) : 0.f;
+      ps[ps_off + TY * i * LP + TX * j] = p;
+      rs = __fadd_rn(rs, p);
+    }
+#pragma unroll
+    for (int off = TX / 2; off > 0; off >>= 1)
+      rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, off));
+    const float alpha = exp2f(__fsub_rn(m[i], m_new));
+    l[i] = __fadd_rn(__fmul_rn(l[i], alpha), rs);
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int sq,
+                 int sk, float scale_log2, int causal) {
+  constexpr int RM = rows_per_thread<D>();
+  constexpr int BQ = TY * RM;
+  constexpr int LD = D + 4;
+  constexpr int NC = D / 32;       // float4 output columns per thread
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // BQ x LD, scaled q
+  float* ks = qs + BQ * LD;                      // BK x LD
+  float* vs = ks + BK * LD;                      // BK x LD
+  float* ps = vs + BK * LD;                      // BQ x LP
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q0 = blockIdx.x * BQ;
-  const int64_t bh = blockIdx.y;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const int64_t bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
+  // keys past the tile's last query row are masked for all of its rows
+  const int kend = causal ? min(sk, q0 + BQ) : sk;
+  const int n_kt = (kend + BK - 1) / BK;
+  const int ps_off = ty * LP + tx;  // this thread's first place in P
 
-  load_tile<T, D>(qs, q + bh * sq * D, q0, sq, BQ, scale);
+  load_kv<D>(ks, kb, 0, sk);
+  cp_async_commit();
+  load_kv<D>(vs, vb, 0, sk);
+  cp_async_commit();
+  {
+    const float* qb = q + (bh * sq + q0) * D;
+    for (int i = threadIdx.x; i < BQ * D / 4; i += THREADS) {
+      const int r = i / (D / 4), c = 4 * (i % (D / 4));
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < sq) {
+        x = *reinterpret_cast<const float4*>(qb + (int64_t)r * D + c);
+        x.x = __fmul_rn(x.x, scale_log2);
+        x.y = __fmul_rn(x.y, scale_log2);
+        x.z = __fmul_rn(x.z, scale_log2);
+        x.w = __fmul_rn(x.w, scale_log2);
+      }
+      *reinterpret_cast<float4*>(qs + r * LD + c) = x;
+    }
+  }
 
-  float m[RM], l[RM], acc[RM][RD];
+  float m[RM], l[RM], acc[RM][4 * NC];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < RD; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
   }
 
-  // keys past the tile's last query row are masked for all of its rows
-  const int kend = causal ? min(sk, q0 + BQ) : sk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();               // the last tile's P.V is done with kv, ps
-    load_tile<T, D>(kv, kb, k0, sk, BK, 1.f);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait_one();           // this tile's K
     __syncthreads();
 
-    float sc[RM][RN];
+    float sc[RM][8];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float a[RM], b[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = qs[(ty + TY * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) b[j] = kv[(tx + TX * j) * LD + c];
+      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < D; c += 4) {
+      float4 a[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (ty + TY * i) * LD + c);
 #pragma unroll
-        for (int j = 0; j < RN; ++j) sc[i][j] = __fmaf_rn(a[i], b[j], sc[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(ks + (tx + TX * j) * LD + c);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          sc[i][j] = __fmaf_rn(a[i].x, b.x, sc[i][j]);
+          sc[i][j] = __fmaf_rn(a[i].y, b.y, sc[i][j]);
+          sc[i][j] = __fmaf_rn(a[i].z, b.z, sc[i][j]);
+          sc[i][j] = __fmaf_rn(a[i].w, b.w, sc[i][j]);
+        }
+      }
     }
 
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = q0 + ty + TY * i;
-      bool vis[RN];
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int key = k0 + tx + TX * j;
-        vis[j] = key < sk && (!causal || key <= row);
-        if (vis[j]) mx = fmaxf(mx, sc[i][j]);
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float p = vis[j] ? expf(__fsub_rn(sc[i][j], m_new)) : 0.f;
-        ps[(ty + TY * i) * LP + tx + TX * j] = p;
-        rs = __fadd_rn(rs, p);
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, off));
-      const float alpha = expf(__fsub_rn(m[i], m_new));
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha), rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < RD; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
-    }
+    // only a tile at the diagonal or at the ragged end of K masks keys
+    if ((causal && k0 + BK - 1 > q0) || k0 + BK > sk)
+      softmax_tile<true, RM, NC>(sc, m, l, acc, ps, q0 + ty, k0 + tx, sk,
+                                 causal, ps_off);
+    else
+      softmax_tile<false, RM, NC>(sc, m, l, acc, ps, q0 + ty, k0 + tx, sk,
+                                  causal, ps_off);
+    __syncwarp();                  // this warp's rows of P are written
 
-    __syncthreads();               // K read and P written by every thread
-    load_tile<T, D>(kv, vb, k0, sk, BK, 1.f);
+    __syncthreads();               // every thread is done with K
+    if (kt + 1 < n_kt) load_kv<D>(ks, kb, k0 + BK, sk);
+    cp_async_commit();
+    cp_async_wait_one();           // this tile's V
     __syncthreads();
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float p[RM];
+#pragma unroll 2
+    for (int j = 0; j < BK; j += 4) {
+      float4 p[RM];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) p[i] = ps[(ty + TY * i) * LP + j];
+      for (int i = 0; i < RM; ++i)
+        p[i] = *reinterpret_cast<const float4*>(ps + (ty + TY * i) * LP + j);
 #pragma unroll
-      for (int c = 0; c < RD; ++c) {
-        const float vv = kv[j * LD + tx + TX * c];
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int i = 0; i < RM; ++i) acc[i][c] = __fmaf_rn(p[i], vv, acc[i][c]);
-      }
+        for (int c = 0; c < NC; ++c) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              vs + (j + e) * LD + 4 * tx + 32 * c);
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const float pe = get(p[i], e);
+            acc[i][4 * c + 0] = __fmaf_rn(pe, w.x, acc[i][4 * c + 0]);
+            acc[i][4 * c + 1] = __fmaf_rn(pe, w.y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = __fmaf_rn(pe, w.z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = __fmaf_rn(pe, w.w, acc[i][4 * c + 3]);
+          }
+        }
     }
+
+    __syncthreads();               // every thread is done with V
+    if (kt + 1 < n_kt) load_kv<D>(vs, vb, k0 + BK, sk);
+    cp_async_commit();
   }
 
 #pragma unroll
@@ -184,49 +263,52 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + TY * i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* o = out + (bh * sq + row) * D;
+    float* o = out + (bh * sq + row) * D + 4 * tx;
 #pragma unroll
-    for (int c = 0; c < RD; ++c)
-      o[tx + TX * c] = from_f32<T>(__fdiv_rn(acc[i][c], den));
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(o + 32 * c) = make_float4(
+          __fdiv_rn(acc[i][4 * c + 0], den), __fdiv_rn(acc[i][4 * c + 1], den),
+          __fdiv_rn(acc[i][4 * c + 2], den), __fdiv_rn(acc[i][4 * c + 3], den));
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int sq, int sk, int causal, float scale, cudaStream_t stream) {
+           int sq, int sk, int causal, float scale_log2, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)bh);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, scale, causal);
+  constexpr int BQ = TY * rows_per_thread<D>();
+  dim3 grid((unsigned)bh, (unsigned)((sq + BQ - 1) / BQ));
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), sq, sk, scale_log2,
+      causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous.
-// dtype: 0 = f32, 1 = bf16; d: 64 or 128.  Returns the CUDA error code of
+// q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous f32
+// on 16-byte boundaries; d: 64, 128 or 192; scale_log2 = f32(1/sqrt(d)) *
+// log2(e).  Returns the CUDA error code of
 // the launch (0 = launched); any stale error is cleared first so that the
 // code reports this launch alone.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int sq, int sk, int d, int causal,
-                                      float scale, int dtype, void* stream) {
+                                      float scale_log2, void* stream) {
   cudaGetLastError();
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, out, bh, sq, sk, causal, scale, st);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, out, bh, sq, sk, causal, scale, st);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, bh, sq, sk, causal, scale, st);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, bh, sq, sk, causal, scale, st);
+  if (d == 64)
+    return launch<64>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+  if (d == 128)
+    return launch<128>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+  if (d == 192)
+    return launch<192>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
   return (int)cudaErrorInvalidValue;
 }

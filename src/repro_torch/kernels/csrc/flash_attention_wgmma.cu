@@ -1,0 +1,619 @@
+// Flash attention forward (online softmax) in bf16 on Hopper's tensor cores
+// (sm_90a): wgmma for both products, K/V tiles by TMA.
+//
+// Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
+// (_flash_kernel), for bf16 inputs (f32 inputs take flash_attention.cu).
+// For each (batch*head, query row) it computes
+//   out = softmax(scale * q . K^T, masked) . V,   scale = float32(1/sqrt(D)),
+// with the products, the scores, the running max and sum and the
+// accumulator in f32 and out = acc / max(l, 1e-30) rounded to bf16.  Where
+// causal, keys past the query's position (both counted from 0) take no
+// part, and neither do keys at or past Sk.  D is 64, 128 or 192.
+//
+// Bound on this card: operations.  Per query row and visible key it does
+// 2 D multiply-adds (q.k and p.v), thousands per byte read at the sequence
+// lengths attention runs at.
+//
+// Numerics.  q.K^T is exact bf16 products summed in f32 (wgmma), scaled
+// after the product.  The plain version keeps P in f32, and rounding P
+// once to bf16 moves a few percent of the outputs by more than one bf16
+// step at long sequences.  So P is split, P_hi = bf16(p) and
+// P_lo = bf16(p - P_hi), and O += P_hi . V + P_lo . V: two wgmmas, P good
+// to about 2^-16 of its value, the tensor cores issuing 1.5x the useful
+// operations.  Exponentials are exp2 of scores scaled by log2(e).
+//
+// Design.  One block per (bh, 128 query rows), 384 threads: warpgroup 0
+// is the producer (one thread issues every TMA load; setmaxnreg drops it
+// to 24 registers), warpgroups 1 and 2 are consumers of 64 rows each
+// (setmaxnreg 240).  Q (128 x D) is loaded once; 64-key K and V tiles go
+// through a ring of STAGES shared-memory stages each, signalled by
+// mbarriers (full: the TMA's bytes arrived; empty: all 8 consumer warps are
+// done with it).  Tiles are stored as D/64 column blocks of 128-byte rows
+// with the 128-byte swizzle, one TMA box each (a box's inner extent is at
+// most 128 bytes), and the wgmma descriptors walk the same blocks.  Per key
+// tile a consumer warpgroup runs S = Q.K^T (m64n64k16, A and B K-major from
+// shared memory), the online softmax on the accumulator fragments (row max
+// and sum over the quad of lanes that shares a row; a masked key gets
+// p = 0, the running max starts at -1e30), then O = O.alpha + P_hi.V +
+// P_lo.V (m64nDk16, A = P in registers, taken from the S fragments as they
+// lie, B = V MN-major from shared memory).  S of tile t and P.V of tile
+// t - 1 are issued together, so the softmax of tile t runs while the
+// tensor cores do P.V; the two consumer warpgroups overlap each other too.
+// TMA zero-fills rows past S, and those keys are masked (only tiles at the
+// diagonal or the ragged end test masks).  Key tiles wholly above a
+// block's rows are not loaded, and those above a warpgroup's rows not
+// computed; in causal mode the block with the most key tiles starts first.
+// No allocation; the launch goes on the caller's stream.
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+
+namespace {
+
+constexpr int BQ = 128;            // query rows per block
+constexpr int BK = 64;             // keys per tile
+constexpr int THREADS = 384;       // producer warpgroup + 2 consumers
+constexpr float NEG = -1e30f;
+
+template <int D>
+struct Layout {
+  static constexpr int STAGES = D <= 128 ? 3 : 2;
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;
+  static constexpr uint32_t TILE_BYTES = BK * D * 2;   // one K or V stage
+  static constexpr uint32_t K_OFF = Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * TILE_BYTES;
+  // Q's barrier, then full and empty barriers of the K and V stages
+  static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 4 * STAGES);
+  // dynamic shared memory: the tiles must start on 1024 bytes (the swizzle
+  // atom), which the launch does not promise
+  static constexpr size_t SMEM = BYTES + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 3-d tensor map (column, row, bh) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c),
+         "r"(row), "r"(bh)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major (the reduction dim contiguous): 8-row groups 1024 bytes apart;
+// the leading offset is not used with this swizzle
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return smem_desc(addr, 16, 1024);
+}
+// MN-major B of a 64-key tile: 8-key groups 1024 bytes apart, 64-column
+// blocks one tile's block (64 rows x 128 bytes) apart
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return smem_desc(addr, BK * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of wgmma registers across the
+// fence, commit and wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// S (64 x 64, f32) = A (64 x 16, shared) . B (16 x 64, shared), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// O (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 192, f32) += A (64 x 16, registers) . B (16 x 192, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (D == 64) wgmma_rs_n64(o, a, b);
+  else if constexpr (D == 128) wgmma_rs_n128(o, a, b);
+  else wgmma_rs_n192(o, a, b);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (p0, p1) as bf16 pairs hi = bf16(p) and lo = bf16(p - hi)
+__device__ __forceinline__ void split_bf16x2(float p0, float p1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = bf16x2(__fsub_rn(p0, __low2float(h)), __fsub_rn(p1, __high2float(h)));
+}
+
+// The online-softmax step of one 64-key tile on a thread's S fragments
+// (rows r0, r0 + 8; keys key0 + 8 j + {0, 1}): p = exp2(s * scale_log2 -
+// m) into sc, the running max m (log2 domain) and this thread's part of
+// the row sums l updated, and alpha = exp2(m_old - m) for O.  The max is
+// taken over the raw scores, which scale_log2 > 0 leaves in order.  MASK:
+// keys past Sk or, where causal, past a row's position get p = 0.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int r0, int key0, int sk,
+                                             int causal, float scale_log2) {
+  const float ninf = __int_as_float(0xff800000);
+  float mx[2] = {ninf, ninf};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK) {
+        const int key = key0 + 8 * j + (e & 1);
+        const int row = r0 + 8 * (e >> 1);
+        if (!(key < sk && (!causal || key <= row))) sc[4 * j + e] = ninf;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    }
+  float rs[2] = {0.f, 0.f}, neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], __fmul_rn(mx[r], scale_log2));
+    alpha[r] = exp2f(__fsub_rn(m[r], m_new));
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(__fmaf_rn(sc[4 * j + e], scale_log2, neg_m[e >> 1]));
+      sc[4 * j + e] = p;
+      rs[e >> 1] = __fadd_rn(rs[e >> 1], p);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), rs[r]);
+}
+
+// q, k, v: 3-d tensor maps over (bh, S, D) bf16, boxes of 64 columns by
+// BQ (q) or BK (k, v) rows; out (bh, sq, D) bf16.  Grid (bh, query tiles).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int sq, int sk,
+                   float scale_log2, int causal) {
+  using L = Layout<D>;
+  constexpr int S = L::STAGES;
+  constexpr int CB = D / 64;       // 64-column blocks
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq_tile = base, sk_tile = base + L::K_OFF,
+                 sv_tile = base + L::V_OFF;
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t full_k = bar_q + 8, empty_k = full_k + 8 * S,
+                 full_v = empty_k + 8 * S, empty_v = full_v + 8 * S;
+
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  // keys past the tile's last query row are masked for all of its rows
+  const int kend = causal ? min(sk, q0 + BQ) : sk;
+  const int n_kt = (kend + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 8);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        tma_load(sq_tile + c * BQ * 128, &tq, bar_q, c * 64, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S;
+        const uint32_t ph = (kt / S) & 1;
+        const uint32_t kdst = sk_tile + s * L::TILE_BYTES,
+                       vdst = sv_tile + s * L::TILE_BYTES;
+        mbar_wait(empty_k + 8 * s, ph ^ 1);
+        mbar_expect_tx(full_k + 8 * s, L::TILE_BYTES);
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          tma_load(kdst + c * BK * 128, &tk, full_k + 8 * s, c * 64, kt * BK,
+                   bh);
+        mbar_wait(empty_v + 8 * s, ph ^ 1);
+        mbar_expect_tx(full_v + 8 * s, L::TILE_BYTES);
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          tma_load(vdst + c * BK * 128, &tv, full_v + 8 * s, c * 64, kt * BK,
+                   bh);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    // this thread's rows in the accumulators: r0 and r0 + 8; its columns
+    // in each 8-column group: c0 and c0 + 1
+    const int r0 = q0 + 64 * cw + 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const int wg_first = q0 + 64 * cw, wg_last = wg_first + 63;
+    const uint32_t qa = sq_tile + cw * 64 * 128;
+
+    float o[D / 2], sc[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t phi[16], plo[16];
+
+    // S = Q . K^T of key tile kt, issued and committed
+    auto issue_qk = [&](int kt) {
+      const uint32_t kb = sk_tile + (kt % S) * L::TILE_BYTES;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // 16 columns of a block
+        wgmma_ss_n64(sc, desc_k_major(qa + (kk / 4) * BQ * 128 + off),
+                     desc_k_major(kb + (kk / 4) * BK * 128 + off), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P_hi . V + P_lo . V of key tile kt, issued and committed
+    auto issue_pv = [&](int kt) {
+      const uint32_t vb = sv_tile + (kt % S) * L::TILE_BYTES;
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t b = desc_mn_major(vb + kk * 16 * 128);
+        wgmma_pv<D>(o, phi + 4 * kk, b);
+        wgmma_pv<D>(o, plo + 4 * kk, b);
+      }
+      wgmma_commit();
+    };
+    // the softmax step of the scores in sc (key tile kt): p into sc, the
+    // running max and sum, and alpha for O
+    auto softmax = [&](int kt) {
+      const int k0 = kt * BK;
+      // only a tile at the diagonal or at the ragged end of K masks keys
+      if ((causal && k0 + BK - 1 > wg_first) || k0 + BK > sk)
+        softmax_tile<true>(sc, m, l, alpha, r0, k0 + c0, sk, causal,
+                           scale_log2);
+      else
+        softmax_tile<false>(sc, m, l, alpha, r0, k0 + c0, sk, causal,
+                            scale_log2);
+    };
+    // O scaled by alpha, then P (in sc) as wgmma A fragments: for keys
+    // 16 kk .. 16 kk + 15 the registers are (rows r0, r0 + 8) x (S column
+    // groups 2 kk, 2 kk + 1), which is where the S accumulator holds them
+    auto rescale_and_pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] = __fmul_rn(o[4 * j + 0], alpha[0]);
+        o[4 * j + 1] = __fmul_rn(o[4 * j + 1], alpha[0]);
+        o[4 * j + 2] = __fmul_rn(o[4 * j + 2], alpha[1]);
+        o[4 * j + 3] = __fmul_rn(o[4 * j + 3], alpha[1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int i = 4 * (2 * kk + h) + 2 * rr;
+            split_bf16x2(sc[i], sc[i + 1], phi[4 * kk + 2 * h + rr],
+                         plo[4 * kk + 2 * h + rr]);
+          }
+    };
+    // tiles 0 .. n_live - 1 are computed; a tile wholly above this
+    // warpgroup's rows (in causal order, every later one too) is waited for
+    // and released only
+    const int n_live = causal ? min(n_kt, wg_last / BK + 1) : n_kt;
+
+    // Per tile kt: S_kt = Q.K_kt^T and O += P_{kt-1}.V_{kt-1} go to the
+    // tensor cores together; the softmax of S_kt runs while P.V does.  No
+    // wgmma is issued under a branch, so that ptxas keeps them pipelined.
+    mbar_wait(bar_q, 0);
+    mbar_wait(full_k, 0);
+    issue_qk(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(empty_k);
+    softmax(0);
+    rescale_and_pack();
+    for (int kt = 1; kt < n_live; ++kt) {
+      const int s = kt % S, sp = (kt - 1) % S;
+      mbar_wait(full_k + 8 * s, (kt / S) & 1);
+      issue_qk(kt);
+      mbar_wait(full_v + 8 * sp, ((kt - 1) / S) & 1);
+      issue_pv(kt - 1);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(empty_k + 8 * s);
+      softmax(kt);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(phi);             // read by P.V until here
+      fence_regs(plo);
+      if (lane == 0) mbar_arrive(empty_v + 8 * sp);
+      rescale_and_pack();
+    }
+    {
+      const int sp = (n_live - 1) % S;
+      mbar_wait(full_v + 8 * sp, ((n_live - 1) / S) & 1);
+      issue_pv(n_live - 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(empty_v + 8 * sp);
+    }
+    for (int kt = n_live; kt < n_kt; ++kt) {
+      const int s = kt % S;
+      const uint32_t ph = (kt / S) & 1;
+      mbar_wait(full_k + 8 * s, ph);
+      if (lane == 0) mbar_arrive(empty_k + 8 * s);
+      mbar_wait(full_v + 8 * s, ph);
+      if (lane == 0) mbar_arrive(empty_v + 8 * s);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+      l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + 8 * rr;
+      if (row >= sq) continue;
+      const float den = fmaxf(l[rr], 1e-30f);
+      __nv_bfloat16* orow = out + ((int64_t)bh * sq + row) * D + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            bf16x2(__fdiv_rn(o[4 * j + 2 * rr], den),
+                   __fdiv_rn(o[4 * j + 2 * rr + 1], den));
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, from the libcuda the process has
+// loaded (so the library links against the runtime alone)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a (bh, s, d) bf16 tensor as a 3-d map with 64-column boxes of `rows`
+// rows, 128-byte swizzle, zeros past the edges
+CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* p, int bh,
+                  int s, int d, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int bh,
+           int sq, int sk, int causal, float scale_log2, cudaStream_t stream) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(enc, &tq, q, bh, sq, D, BQ);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, bh, sk, D, BK);
+  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, bh, sk, D, BK);
+  if (r != CUDA_SUCCESS) return -(int)r;
+  const size_t smem = Layout<D>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)bh, (unsigned)((sq + BQ - 1) / BQ));
+  flash_wgmma_kernel<D><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, sk, scale_log2,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous bf16
+// on 16-byte boundaries; d: 64, 128 or 192; scale_log2 = f32(1/sqrt(d)) *
+// log2(e).  Returns the CUDA error code of the launch (0 = launched), or
+// minus the driver's code where a tensor map could not be made; any stale
+// error is cleared first so that the code reports this launch alone.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
+                                            const void* v, void* out, int bh,
+                                            int sq, int sk, int d, int causal,
+                                            float scale_log2, void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 64)
+    return launch<64>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+  if (d == 128)
+    return launch<128>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+  if (d == 192)
+    return launch<192>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -58,6 +58,26 @@ def test_flash_attention_matches_reference_bf16():
                                rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("dtype,causal", [("float32", True),
+                                          ("float32", False),
+                                          ("bfloat16", True)])
+def test_flash_attention_matches_reference_d192(dtype, causal):
+    """Head dim 192 (nemotron-4-340b's), which both CUDA kernels now take:
+    256 x 256 against the reference's Pallas kernel, at the reference
+    test's tolerances, 2e-4 for f32 and 3e-2 for bf16 (rounded to bf16
+    separately on each side)."""
+    q, k, v = _qkv(2, 256, 256, 192, seed=3)
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    want = JK.flash_attention(*(jnp.asarray(a).astype(dtype)
+                                for a in (q, k, v)), causal=causal)
+    got = TK.flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                               for a in (q, k, v)), causal=causal)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
 @pytest.mark.parametrize("sq,sk,causal", [(256, 256, True), (300, 300, True),
                                           (64, 200, False)])
 def test_plain_versions_agree(sq, sk, causal):
@@ -90,6 +110,11 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
 
     with pytest.raises(ValueError, match="D in"):
         flash_attention_cuda(*qkv(256, 256, 48), causal=True, bq=256, bk=256)
+    # 192 passes the head-dim check and stops at the next one
+    q, k, v = qkv(256, 256, 192)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_cuda(q, k, v[:, :128].contiguous(), causal=False,
+                             bq=256, bk=256)
     with pytest.raises(ValueError, match="f32 or bf16"):
         flash_attention_cuda(*qkv(256, 256, 64, torch.float64), causal=True,
                              bq=256, bk=256)
@@ -102,3 +127,6 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_cuda(q, k.to(torch.bfloat16), v, causal=False,
                              bq=256, bk=256)
+    shifted = torch.zeros(2 * 256 * 64 + 1)[1:].view(2, 256, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, shifted, v, causal=False, bq=256, bk=256)

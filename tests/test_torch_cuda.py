@@ -210,16 +210,18 @@ def _qkv(bh, sq, sk, d, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("sq,sk,causal", [(256, 256, True), (256, 256, False),
                                           (80, 80, True), (256, 1024, False),
-                                          (512, 256, False)])
+                                          (512, 256, False), (64, 200, False)])
 def test_flash_attention_matches_plain(cuda, dtype, d, sq, sk, causal):
-    """Online softmax in 64 x 64 tiles against the plain softmax: both f32
-    inside, sums in another order; f32 at rtol = atol = 2e-4.  Both round
-    once to bf16, so bf16 outputs differ by at most one bf16 step, 2^-7 of
-    the value: rtol = 1e-2, atol = 1e-5.  (80, 80) leaves a ragged 16-row
-    tile."""
+    """Online softmax in tiles against the plain softmax (f32 on the CUDA
+    cores, bf16 on wgmma with P split into two bf16 terms): f32 inside,
+    sums in another order; f32 at rtol = atol = 2e-4.  Both round once to
+    bf16, so bf16 outputs differ by at most one bf16 step, 2^-7 of the
+    value: rtol = 1e-2, atol = 1e-5.  (80, 80) leaves a ragged tile of
+    queries and keys; in (64, 200) the last key tile is ragged, and the
+    wgmma kernel's TMA fills it with zeros, which must be masked."""
     q, k, v = (a.to(dtype) for a in _qkv(3, sq, sk, d, seed=d + sq))
     want = TRef.flash_attention_ref(q, k, v, causal=causal)
     before = _build.LAUNCHES["flash_attention"]
@@ -231,6 +233,22 @@ def test_flash_attention_matches_plain(cuda, dtype, d, sq, sk, causal):
     rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-5)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_bf16_long_causal(cuda):
+    """bf16, causal, BH 2, S = 8,192, D = 128: long rows, where P rounded
+    once to bf16 moves a few percent of the outputs by more than one bf16
+    step from the plain version's (which keeps P in f32).  The split P
+    holds the same limit as the short cases, rtol = 1e-2, atol = 1e-5.
+    The plain version runs on the card."""
+    q, k, v = (a.to(torch.bfloat16).to(cuda)
+               for a in _qkv(2, 8192, 8192, 128, seed=8192))
+    want = TRef.flash_attention_ref(q, k, v, causal=True)
+    got = TK.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=1e-2,
+                               atol=1e-5)
 
 
 def test_flash_attention_raises_outside_the_rules(cuda):
