@@ -13,7 +13,11 @@ nothing of the JAX package.  The script
    main paths give it — the comparison on a leading slice of 2^24
    coordinates (the plain versions' temporaries are too large for the
    whole shape), the timing at the full shape — and prints its time,
-   bound, plain time and library-call time;
+   bound, plain time and library-call time.  The FWHT is held bitwise
+   also at every row length it takes (4 to 16384), in f32 and bf16, and
+   on two views off a 16-byte boundary, and is timed in bf16 too; the
+   ``sass`` line counts its LDS, STS and SHFL at d = 4096 and its
+   registers, and fails if any instance of it spilled;
 3. runs round A: an unrotated, unanchored round of 16 clients over a
    277,845,504-dimensional vector (the gradient of whisper-small, the
    smallest model the repo configures), q = 16, bucket = 4096, y0 = 0.25;
@@ -176,19 +180,56 @@ def bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sass_counts(_build, name: str, ops) -> dict:
-    """How often each of ``ops`` occurs in the SASS of a built kernel
-    library (``cuobjdump -sass``, beside ``nvcc``): the wgmma kernel must
-    show HGMMA (wgmma) and UTMALDG (TMA loads)."""
+def cuobjdump(_build, name: str, what: str) -> str:
+    """``cuobjdump <what>`` of a built kernel library (beside ``nvcc``)."""
     tool = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+    return subprocess.run([str(tool), what, str(_build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
-              for op in ops}
+
+
+def sass_counts(sass: str, ops) -> dict:
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in ops}
+
+
+def wgmma_sass(_build) -> dict:
+    """The wgmma kernel must show HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    counts = sass_counts(cuobjdump(_build, "flash_attention_wgmma", "-sass"),
+                         ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR"))
     check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-          f"{name}'s SASS has no HGMMA or no UTMALDG: {counts}")
-    return dict(library=name, counts=counts)
+          f"flash_attention_wgmma's SASS has no HGMMA or no UTMALDG: {counts}")
+    return counts
+
+
+# the FWHT kernel at d = 4096, f32, 16-byte runs (its main paths' instance)
+FWHT_MAIN = "fwht_kernelIfLi12ELb1E"
+
+
+def fwht_sass(_build) -> dict:
+    """The FWHT kernel's shared-memory and shuffle instructions at d = 4096
+    in f32 (LDS, STS, SHFL in its SASS), its registers, static shared and
+    local bytes (``cuobjdump -res-usage``); fails unless the transposes and
+    the exchange are there and no instance of the kernel uses local memory
+    (ptxas spilled nothing)."""
+    parts = re.split(r"Function : (\S+)", cuobjdump(_build, "fwht", "-sass"))
+    bodies = [body for name, body in zip(parts[1::2], parts[2::2])
+              if FWHT_MAIN in name]
+    check(len(bodies) == 1, f"no single {FWHT_MAIN} in fwht's SASS")
+    counts = sass_counts(bodies[0], ("LDS", "STS", "SHFL"))
+    check(all(counts.values()), f"{FWHT_MAIN}'s SASS lacks LDS, STS or "
+          f"SHFL: {counts}")
+    usage = {name: dict(zip(("registers", "stack", "shared", "local"),
+                            map(int, vals)))
+             for name, *vals in re.findall(
+                 r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+                 r"LOCAL:(\d+)", cuobjdump(_build, "fwht", "-res-usage"))}
+    main = [u for name, u in usage.items() if FWHT_MAIN in name]
+    check(len(main) == 1, f"no single {FWHT_MAIN} in cuobjdump -res-usage")
+    check(all(u["local"] == 0 for u in usage.values()),
+          "an fwht kernel uses local memory (ptxas spilled)")
+    # the launcher's dynamic shared memory at d = 4096: one f32 tile
+    return dict(function=FWHT_MAIN, counts=counts, **main[0],
+                dynamic_shared_bytes=4 * 4096)
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -333,17 +374,58 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     del w1, s1, u
     torch.cuda.empty_cache()
 
-    # --- fwht over (nb, bucket) rows, f32
+    out["fwht"] = fwht_check(torch, x, nb, bucket, g)
+    del x
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        say("kernel_check", name=name, **r)
+    return out
+
+
+def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
+    """The FWHT at the main paths' shape, (nb, bucket) f32, timed in f32
+    and in bf16.  Bitwise against its plain version (the kernel runs the
+    plain version's stage order): on the first 2^24 coordinates of that
+    shape; at every row length it takes, f32 and bf16, on 301 rows (the
+    last tile of rows shorter than a tile is ragged); and on two views off
+    a 16-byte boundary, ``x[1:]`` of a (rows, 4) bf16 tensor and an f32
+    view one element into a flat buffer."""
+    from repro_torch.kernels import ops, ref
+
+    dev = x.device
+
+    def same(got, want, what):
+        it = torch.int32 if got.dtype == torch.float32 else torch.int16
+        check(got.dtype == want.dtype and torch.equal(got.view(it),
+                                                      want.view(it)),
+              f"fwht disagrees with its plain version ({what})")
+
     xb = x.reshape(nb, bucket)
+    rows = max(1, min(nb, SLICE // bucket))
     y = ops.fwht(xb)
     torch.cuda.synchronize()
-    rows = max(1, L_ // bucket)
     want = ref.fwht_ref(xb[:rows])
-    check(torch.allclose(y[:rows], want, rtol=1e-5, atol=1e-4),
-          "fwht disagrees with its plain version")
+    same(y[:rows], want, f"first {rows} rows of ({nb}, {bucket}) f32")
     err = max_abs_err(torch, y[:rows], want)
     del y, want
-    ms = cuda_ms(torch, lambda: ops.fwht(xb))
+    cases = 1
+    for k in range(2, 15):
+        for dt in (torch.float32, torch.bfloat16):
+            xs = torch.randn((301, 1 << k), generator=g, device=dev).to(dt)
+            same(ops.fwht(xs), ref.fwht_ref(xs), f"(301, {1 << k}) {dt}")
+            cases += 1
+    views = (torch.randn((301, 4), generator=g, device=dev)
+             .to(torch.bfloat16)[1:],
+             torch.randn(301 * 64 + 1, generator=g, device=dev)[1:]
+             .view(301, 64))
+    for v in views:
+        check(v.data_ptr() % 16 != 0, "the misaligned view is aligned")
+        same(ops.fwht(v), ref.fwht_ref(v),
+             f"view {tuple(v.shape)} {v.dtype} {v.data_ptr() % 16} bytes "
+             "off a 16-byte boundary")
+        cases += 1
+    torch.cuda.synchronize()
+    ms = cuda_ms(torch, lambda: ops.fwht(xb), reps=20)
 
     def plain_fwht():
         for r0 in range(0, nb, rows):
@@ -354,16 +436,25 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     torch.backends.cuda.matmul.allow_tf32 = False
     h = ref.fwht_ref(torch.eye(bucket, device=dev))
     lib = cuda_ms(torch, lambda: torch.matmul(xb, h), reps=3)
+    del h
+    xh = xb.to(torch.bfloat16)
+    ms_bf16 = cuda_ms(torch, lambda: ops.fwht(xh), reps=20)
+    # what the card's own copy takes for the same bytes (information)
+    o = torch.empty_like(xb)
+    copy_ms = cuda_ms(torch, lambda: o.copy_(xb), reps=20)
+    o = torch.empty_like(xh)
+    copy_bf16 = cuda_ms(torch, lambda: o.copy_(xh), reps=20)
+    del xh, o
+    n = nb * bucket
     logd = bucket.bit_length() - 1
-    b, by = bound(n_pad * 8, n_pad * (logd + 1))
-    out["fwht"] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                       library_ms=lib, max_abs_err=err,
-                       shape=f"({nb}, {bucket}) f32")
-    del x, xb, h
-    torch.cuda.empty_cache()
-    for name, r in out.items():
-        say("kernel_check", name=name, **r)
-    return out
+    b, by = bound(n * 8, n * (logd + 1))
+    b16, _ = bound(n * 4, n * (logd + 1))
+    return dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=lib, max_abs_err=err,
+                shape=f"({nb}, {bucket}) f32", share_of_bound=b / ms,
+                copy_ms=copy_ms, bf16_ms=ms_bf16, bf16_bound_ms=b16,
+                bf16_share_of_bound=b16 / ms_bf16, bf16_copy_ms=copy_bf16,
+                bitwise_cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1210,8 +1301,8 @@ def main() -> int:
         ptxas[name] = dict(max_registers=max(regs, default=None),
                            spill_store_bytes=sum(spills))
     say("build", seconds=time.perf_counter() - t0, built=built, ptxas=ptxas)
-    say("sass", **sass_counts(_build, "flash_attention_wgmma",
-                              ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR")))
+    say("sass", flash_attention_wgmma=wgmma_sass(_build),
+        fwht=fwht_sass(_build))
 
     spec = wire.RoundSpec(round_id=1, d=FULL_D,
                           cfg=QSyncConfig(q=16, bucket=4096))

@@ -30,10 +30,11 @@ def round_spec(fields: dict) -> RoundSpec:
     return RoundSpec(cfg=cfg, **fields)
 
 
-def tensor(a, device="cpu", dtype=torch.float32) -> torch.Tensor:
-    """A numpy array (or array-like) as a tensor of ``dtype`` on ``device``."""
-    return torch.from_numpy(np.array(a, copy=True)).to(device=device,
-                                                       dtype=dtype)
+def tensor(a, device=None, dtype=torch.float32) -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor of ``dtype`` on ``device``
+    (the CUDA device unless another is named)."""
+    return torch.from_numpy(np.array(a, copy=True)).to(
+        device=resolve_device(device), dtype=dtype)
 
 
 def qstate_from_numpy(y, anchor=None, device=None) -> QState:

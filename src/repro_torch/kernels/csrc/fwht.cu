@@ -1,82 +1,299 @@
 // Normalized fast Walsh-Hadamard transform over rows, for Hopper (sm_90a).
 //
 // Replaces: repro/kernels/fwht.py, fwht_pallas -> _fwht_2d (_fwht_kernel).
-// The TPU kernel multiplies each row by H_a (x) H_b on the matrix unit; on
-// this card the transform is the textbook in-place butterfly: log2(d)
-// stages of (a, b) -> (a + b, a - b) at stride h = 1, 2, 4, ..., then a
-// scale by float32(1/sqrt(d)).  This is the stage order of the plain
-// version (fwht_torch / fwht_jnp), so in f32 the kernel and the plain
-// version agree bit for bit; against the TPU kernel's matmul sums they
-// agree to rounding.
+// The TPU kernel multiplies each row by H_a (x) H_b on the matrix unit.
+// Here the transform is the textbook butterfly, (a, b) -> (a + b, a - b)
+// over index bit 0, 1, 2, ..., log2(d) - 1 in that order, then one product
+// with float32(1/sqrt(d)).  Input and output are f32, or bf16 with f32
+// inside (rounded to nearest even once, at the store); d is a power of two
+// in [4, 16384], the reference kernel's range.
 //
-// Input and output are f32, or bf16 with f32 inside (rounded to nearest
-// even on the way out).  d is a power of two in [4, 16384], the reference
-// kernel's range.
+// Bitwise with the plain version (fwht_torch).  Every stage is one
+// __fadd_rn / __fsub_rn with `a` the lower index, the stages run in the
+// plain version's order (bit 0 first), and the scale is one __fmul_rn
+// after the last stage.  Which bits sit in registers, lanes or warps only
+// moves values around; it never changes what is added to what, or when.
 //
-// Bound on this card: memory.  Each row is read once and written once
-// (8 B per f32 coordinate); the log2(d) adds per coordinate run from
-// shared memory and are far below the compute roof.
+// Bound on this card: HBM.  Each coordinate is read once and written once:
+// 8 bytes a coordinate in f32, 4 in bf16.  The log2(d) adds a coordinate
+// are far below the CUDA cores' rate.
 //
-// Design: one block per row.  The row is loaded into dynamic shared memory
-// with coalesced reads, each stage maps thread p to the butterfly pair
-// (j, j + h) with j = (p / h) * 2h + p % h, stages are separated by
-// __syncthreads(), and the scaled row is stored with coalesced writes.
-// A row of 16384 f32 (64 KB) is above the default 48 KB of dynamic shared
-// memory and needs the opt-in attribute, which the launcher sets.  No allocation; the launch goes on the caller's
-// stream.
+// Design.  A block owns a tile of 2^TB coordinates, TB = max(log2 d, 12):
+// whole rows (4096 / d of them for d <= 4096), with 2^(TB-4) threads of 16
+// coordinates each.  Index bits of the tile in each pass:
+//
+//   pass 0   registers 0-3     lanes 4-8          warps 9-11   (16-byte loads)
+//   pass 1   registers 4-7     lanes 0-3, 8       warps 9-11
+//   pass 2   registers 8-11    lanes 0-4          warps 5-7    (d = 4096: 8-11)
+//   pass 3   registers TB-4..  lanes 0-4          (d = 8192, 16384 only)
+//
+// Bits >= log2(d) are row bits: they ride along and get no stage.  A pass
+// runs the stages of its register bits that no earlier pass ran (pass 3
+// overlaps pass 2 for d = 8192 and 16384).  Between passes the tile goes
+// through shared memory once, in natural order with bank bits 2, 3, 4
+// XORed with index bits 5, 6, 8.  That makes every access free of bank
+// conflicts: the pass-0 writes are 16-byte stores whose 8-lane phases vary
+// bits 4-6, and every other access is a 4-byte one whose 32 lanes vary five
+// bits that the swizzle maps onto the 32 banks one to one.  After the last
+// stage and the scale, two (f32) or three (bf16) XOR shuffles swap the
+// lowest lane bits with the lowest register bits, so each thread holds runs
+// of 16 bytes of output, and the stores are 16-byte ones too.
+//
+// Shared-memory traffic of a 4096-point f32 row (256 threads, 8 warps):
+// per warp 4 STS.128 (16 wavefronts) + 16 LDS.32 into pass 1, 16 STS.32 +
+// 16 LDS.32 into pass 2: 64 wavefronts, 512 a row (the shared-memory
+// butterfly this replaces took 4,608), plus 16 SHFL a warp, 128 a row
+// (bf16: 24 a warp, 192 a row).  No stage waits on shared memory, and with
+// up to six 256-thread blocks an SM, one block's loads are in flight while
+// another's stages run.
+//
+// A pointer that is not on a 16-byte boundary (a view that starts inside a
+// row of a small bf16 tensor) takes the same kernel with one-element loads
+// and stores.  No allocation; the launch goes on the caller's stream.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+constexpr int kRegs = 16;  // coordinates a thread holds
+
+template <int L>
+struct Geo {
+  static constexpr int TB = L > 12 ? L : 12;         // tile bits
+  static constexpr int THREADS = 1 << (TB - 4);
+  static constexpr int PASSES = (L + 3) / 4;
+  // six 256-thread blocks an SM (at most 40 registers a thread)
+  static constexpr int MIN_BLOCKS = THREADS >= 1024 ? 1 : 1536 / THREADS;
+};
+
+// Lowest index bit held in registers in pass p.
+template <int L>
+__host__ __device__ constexpr int reg_lo(int p) {
+  return 4 * p + 3 < Geo<L>::TB ? 4 * p : Geo<L>::TB - 4;
 }
 
+// Index bits of thread `tid` in a pass whose registers hold bits lo..lo+3.
+__host__ __device__ constexpr int thread_bits(int lo, int tid) {
+  return (tid & ((1 << lo) - 1)) | ((tid >> lo) << (lo + 4));
+}
+
+// Shared-memory word of tile index i: bank bits 2, 3, 4 XOR bits 5, 6, 8.
+// Linear, so swz(a | b) = swz(a) ^ swz(b) for disjoint a and b.
+__host__ __device__ constexpr int swz(int i) {
+  return i ^ ((i >> 3) & 0xC) ^ ((i >> 4) & 0x10);
+}
+
+// 16-byte and one-element loads and stores, converting to and from f32.
 template <typename T>
-__global__ void fwht_kernel(const T* __restrict__ x, T* __restrict__ out,
-                            int log2d, float scale) {
-  extern __shared__ float row[];
-  const int d = 1 << log2d;
-  const int64_t base = (int64_t)blockIdx.x * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) row[i] = to_f32(x[base + i]);
-  __syncthreads();
-  const int pairs = d >> 1;
-  for (int lh = 0; lh < log2d; ++lh) {
-    const int h = 1 << lh;
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int j = ((p >> lh) << (lh + 1)) | (p & (h - 1));
-      const float a = row[j], b = row[j + h];
-      row[j] = __fadd_rn(a, b);
-      row[j + h] = __fsub_rn(a, b);
-    }
-    __syncthreads();
+struct Io;
+
+template <>
+struct Io<float> {
+  static constexpr int VEC = 4;
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   }
-  for (int i = threadIdx.x; i < d; i += blockDim.x)
-    out[base + i] = from_f32<T>(__fmul_rn(row[i], scale));
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  static __device__ __forceinline__ float load1(const float* p) { return *p; }
+  static __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  static constexpr int VEC = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
+    uint4 t;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = t;
+  }
+  static __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
+
+// VEC coordinates from x[g..], zeros past n (only the last tile of rows
+// shorter than a tile is ragged; n is a multiple of 4).
+template <typename T, bool VEC_IO>
+__device__ __forceinline__ void load_run(const T* __restrict__ x, int64_t g,
+                                         int64_t n, float* v) {
+  constexpr int VEC = Io<T>::VEC;
+  if (VEC_IO && g + VEC <= n) {
+    Io<T>::load(x + g, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) v[c] = g + c < n ? Io<T>::load1(x + g + c) : 0.0f;
+  }
+}
+
+template <typename T, bool VEC_IO>
+__device__ __forceinline__ void store_run(T* __restrict__ out, int64_t g,
+                                          int64_t n, const float* v) {
+  constexpr int VEC = Io<T>::VEC;
+  if (VEC_IO && g + VEC <= n) {
+    Io<T>::store(out + g, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < VEC; ++c)
+      if (g + c < n) Io<T>::store1(out + g + c, v[c]);
+  }
+}
+
+// The stages of pass P: register bit j holds index bit reg_lo(P) + j; the
+// stages run over the bits in [4P, L), lowest first.
+template <int L, int P>
+__device__ __forceinline__ void stages(float (&v)[kRegs]) {
+  constexpr int lo = reg_lo<L>(P);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (lo + j < 4 * P || lo + j >= L) continue;
+#pragma unroll
+    for (int r = 0; r < kRegs; ++r) {
+      if (r & (1 << j)) continue;
+      const float a = v[r], b = v[r | (1 << j)];
+      v[r] = __fadd_rn(a, b);
+      v[r | (1 << j)] = __fsub_rn(a, b);
+    }
+  }
+}
+
+// From the registers of pass P to those of pass P + 1 through shared memory.
+template <int L, int P>
+__device__ __forceinline__ void transpose(float (&v)[kRegs], float* sm, int tid) {
+  constexpr int lo_a = reg_lo<L>(P), lo_b = reg_lo<L>(P + 1);
+  if (P > 0) __syncthreads();  // the last transpose has been read
+  if constexpr (lo_a == 0) {
+    // 16 consecutive coordinates: four 16-byte stores (swz keeps bits 0-1)
+    const int base = swz(tid << 4) >> 2;
+    float4* sm4 = reinterpret_cast<float4*>(sm);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      sm4[base ^ c] = make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  } else {
+    const int base = swz(thread_bits(lo_a, tid));
+#pragma unroll
+    for (int r = 0; r < kRegs; ++r) sm[base ^ swz(r << lo_a)] = v[r];
+  }
+  __syncthreads();
+  const int base = swz(thread_bits(lo_b, tid));
+#pragma unroll
+  for (int r = 0; r < kRegs; ++r) v[r] = sm[base ^ swz(r << lo_b)];
+}
+
+// Swap lane bits 0..E-1 with register bits 0..E-1 (pure data movement).
+template <int E>
+__device__ __forceinline__ void exchange(float (&v)[kRegs], int lane) {
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const bool hi = (lane >> j) & 1;
+#pragma unroll
+    for (int r = 0; r < kRegs; ++r) {
+      if (r & (1 << j)) continue;
+      const int r1 = r | (1 << j);
+      const float got = __shfl_xor_sync(0xffffffffu, hi ? v[r] : v[r1], 1 << j);
+      if (hi) v[r] = got; else v[r1] = got;
+    }
+  }
+}
+
+template <typename T, int L, bool VEC_IO>
+__global__ void __launch_bounds__(Geo<L>::THREADS, Geo<L>::MIN_BLOCKS)
+fwht_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, float scale) {
+  constexpr int TB = Geo<L>::TB, P = Geo<L>::PASSES, VEC = Io<T>::VEC;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int64_t g0 = (int64_t)blockIdx.x << TB;
+  float v[kRegs];
+
+  // pass 0: the thread's 16 consecutive coordinates
+#pragma unroll
+  for (int k = 0; k < kRegs / VEC; ++k)
+    load_run<T, VEC_IO>(x, g0 + (tid << 4) + k * VEC, n, v + k * VEC);
+  stages<L, 0>(v);
+  if constexpr (P > 1) { transpose<L, 0>(v, sm, tid); stages<L, 1>(v); }
+  if constexpr (P > 2) { transpose<L, 1>(v, sm, tid); stages<L, 2>(v); }
+  if constexpr (P > 3) { transpose<L, 2>(v, sm, tid); stages<L, 3>(v); }
+#pragma unroll
+  for (int r = 0; r < kRegs; ++r) v[r] = __fmul_rn(v[r], scale);
+
+  if constexpr (P == 1) {
+#pragma unroll
+    for (int k = 0; k < kRegs / VEC; ++k)
+      store_run<T, VEC_IO>(out, g0 + (tid << 4) + k * VEC, n, v + k * VEC);
+  } else {
+    // Lane bits 0..E-1 hold index bits 0..E-1 in passes >= 1; after the
+    // swap the registers hold them, and lane bits 0..E-1 index bits
+    // lo..lo+E-1.
+    constexpr int E = VEC == 4 ? 2 : 3, M = (1 << E) - 1;
+    constexpr int lo = reg_lo<L>(P - 1);
+    exchange<E>(v, tid & 31);
+    const int base = ((tid & M) << lo) | (tid & ((1 << lo) - 1) & ~M)
+                     | ((tid >> lo) << (lo + 4));
+#pragma unroll
+    for (int k = 0; k < kRegs / VEC; ++k)
+      store_run<T, VEC_IO>(out, g0 + (base | (k << (lo + E))), n, v + k * VEC);
+  }
+}
+
+template <typename T, int L>
+int launch_l(const void* x, void* out, int64_t rows, float scale, bool vec,
+             cudaStream_t stream) {
+  using G = Geo<L>;
+  const int64_t n = rows << L;
+  const int64_t blocks = (n + (int64_t(1) << G::TB) - 1) >> G::TB;
+  const size_t smem = G::PASSES > 1 ? sizeof(float) << G::TB : 0;
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
+  auto kernel = vec ? fwht_kernel<T, L, true> : fwht_kernel<T, L, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)blocks, G::THREADS, smem, stream>>>(xp, op, n, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, void* out, int64_t rows, int log2d, float scale,
            cudaStream_t stream) {
-  const int d = 1 << log2d;
-  const size_t smem = (size_t)d * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fwht_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  // 16-byte runs need both pointers on 16-byte boundaries
+  const bool vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
+  switch (log2d) {
+    case 2: return launch_l<T, 2>(x, out, rows, scale, vec, stream);
+    case 3: return launch_l<T, 3>(x, out, rows, scale, vec, stream);
+    case 4: return launch_l<T, 4>(x, out, rows, scale, vec, stream);
+    case 5: return launch_l<T, 5>(x, out, rows, scale, vec, stream);
+    case 6: return launch_l<T, 6>(x, out, rows, scale, vec, stream);
+    case 7: return launch_l<T, 7>(x, out, rows, scale, vec, stream);
+    case 8: return launch_l<T, 8>(x, out, rows, scale, vec, stream);
+    case 9: return launch_l<T, 9>(x, out, rows, scale, vec, stream);
+    case 10: return launch_l<T, 10>(x, out, rows, scale, vec, stream);
+    case 11: return launch_l<T, 11>(x, out, rows, scale, vec, stream);
+    case 12: return launch_l<T, 12>(x, out, rows, scale, vec, stream);
+    case 13: return launch_l<T, 13>(x, out, rows, scale, vec, stream);
+    case 14: return launch_l<T, 14>(x, out, rows, scale, vec, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  int threads = d / 2;
-  if (threads > 512) threads = 512;
-  if (threads < 32) threads = 32;
-  fwht_kernel<T><<<(unsigned)rows, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), log2d, scale);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

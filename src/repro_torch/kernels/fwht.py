@@ -1,8 +1,11 @@
 """Wrapper of the Walsh-Hadamard CUDA kernel (``csrc/fwht.cu``).
 
 Counterpart of ``repro.kernels.fwht.fwht_pallas``: the normalized FWHT
-over the last axis, f32 or bf16 (f32 inside).  The plain torch version is
-:func:`repro_torch.kernels.ref.fwht_ref`.
+over the last axis, f32 or bf16 (f32 inside), equal to the plain torch
+version :func:`repro_torch.kernels.ref.fwht_ref` bit for bit.  A tensor
+whose data does not start on a 16-byte boundary takes the same kernel with
+one-element loads and stores (the C launcher picks them from the
+pointers); nothing is copied.
 """
 from __future__ import annotations
 

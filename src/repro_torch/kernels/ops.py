@@ -8,7 +8,7 @@ no fallback from the card to the plain version.
 Shape rules: the reference's.  The CUDA kernels take q a power of two
 with 2, 4, 8 or 16 bits per color, n >= 32, FWHT rows of d a power of
 two in [4, 16384], and attention with Sq >= 16, Sq and Sk multiples of
-min(256, S), and head dim 64 or 128.  Where the reference sends any other
+min(256, S), and head dim 64, 128 or 192.  Where the reference sends any other
 shape to its plain version, a CUDA tensor of that shape raises here.
 
 ``DISPATCH_COUNTS`` keeps the reference's semantics: one count per

@@ -266,6 +266,19 @@ def test_entry_points_need_a_device_or_cuda():
         TServer(ts, np.zeros(600, np.float32))
 
 
+def test_convert_tensor_runs_on_the_card_unless_asked(monkeypatch):
+    """``convert.tensor`` goes through ``resolve_device``: with no card and
+    no device named it raises; asked for the CPU it gives an equal CPU
+    tensor."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.arange(12, dtype=np.float64).reshape(3, 4) / 7
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.tensor(x)
+    t = convert.tensor(x, device="cpu")
+    assert t.device.type == "cpu" and t.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy(), x.astype(np.float32))
+
+
 def test_port_imports_no_jax_and_no_reference():
     code = ("import sys, repro_torch.agg.server, repro_torch.agg.client, "
             "repro_torch.convert, repro_torch.kernels.ops; "

@@ -155,7 +155,7 @@ C._all_gather, C._ppermute = counted(C._all_gather), counted(C._ppermute)
 def run(c, x, group=None):
     cfg = C.QSyncConfig(q=c["q"], bucket=c["bucket"], rotate=c["rotate"],
                         packed=c["packed"])
-    y = convert.tensor(data[c["y"]])
+    y = convert.tensor(data[c["y"]], device="cpu")
     state = y if c["state"] == "bare" else convert.qstate_from_numpy(
         data[c["y"]], data["anchor" if c["state"] == "anchored"
                            else "zero"][:c["d"]], device="cpu")
@@ -170,7 +170,7 @@ def run(c, x, group=None):
 
 res = {}
 for c in json.load(open(cases_path)):
-    x = convert.tensor(data["xs"][rank, :c["d"]])
+    x = convert.tensor(data["xs"][rank, :c["d"]], device="cpu")
     for k, v in run(c, x).items():
         res[c["name"] + "/" + k] = v.numpy()
 # world 1: every rank alone in its own group
@@ -181,7 +181,7 @@ for fn in ("allgather_allreduce_mean", "butterfly_allreduce_mean",
         c = dict(fn=fn, packed=packed, state="bare", rotate=False, q=16,
                  bucket=256, d=512, y="y1", key=[0, 7])
         data["y1"] = np.ones(2, np.float32)
-        x = convert.tensor(data["xs"][rank, :512])
+        x = convert.tensor(data["xs"][rank, :512], device="cpu")
         for k, v in run(c, x, groups[rank]).items():
             res[f"w1-{fn}-{packed}/{k}"] = v.numpy()
 np.savez(out, **res)

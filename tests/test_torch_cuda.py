@@ -136,17 +136,48 @@ def test_decode_single_raises_outside_the_rules(cuda):
                           bucket=16)
 
 
-@pytest.mark.parametrize("d", [4, 128, 4096, 16384])
+def _bits(t):
+    """The bit view of an f32 or bf16 tensor, on the CPU."""
+    return t.view(torch.int32 if t.dtype == torch.float32
+                  else torch.int16).cpu()
+
+
+@pytest.mark.parametrize("d", [1 << k for k in range(2, 15)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fwht_matches_plain(cuda, d, dtype):
-    x = _t(np.random.RandomState(d).randn(5, d).astype(np.float32)).to(dtype)
+@pytest.mark.parametrize("rows", [1, 133])
+def test_fwht_matches_plain(cuda, d, dtype, rows):
+    """Every row length the kernel takes, in both types, one launch a
+    call.  133 rows leave the last tile ragged wherever a tile holds
+    several rows (d < 4096)."""
+    x = _t(np.random.RandomState(d + rows).randn(rows, d)
+           .astype(np.float32)).to(dtype)
     want = TRef.fwht_ref(x)
+    before = _build.LAUNCHES["fwht"]
     got = TK.fwht(x.to(cuda))
     torch.cuda.synchronize()
-    assert got.dtype == dtype
+    assert _build.LAUNCHES["fwht"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (rows, d)
     # the kernel runs the plain version's stage order: equal, not just close
-    np.testing.assert_array_equal(got.float().cpu().numpy(),
-                                  want.float().numpy())
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_misaligned_view(cuda, dtype):
+    """A view that does not start on a 16-byte boundary takes the kernel's
+    one-element loads: ``x[1:]`` of a (rows, 4) bf16 tensor starts 8 bytes
+    in, and a flat f32 view one element in starts 4 bytes in."""
+    rng = np.random.RandomState(11)
+    if dtype == torch.bfloat16:
+        x = _t(rng.randn(301, 4).astype(np.float32)).to(dtype).to(cuda)[1:]
+    else:
+        x = _t(rng.randn(40 * 64 + 1).astype(np.float32)).to(cuda)[1:]
+        x = x.view(40, 64)
+    assert x.data_ptr() % 16 != 0
+    before = _build.LAUNCHES["fwht"]
+    got = TK.fwht(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fwht"] == before + 1
+    assert torch.equal(_bits(got), _bits(TRef.fwht_ref(x.cpu())))
 
 
 @pytest.mark.parametrize("anchored", [False, True])
