@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's aggregation round, quantized collectives,
-flash attention and the paper's algorithms on one CUDA card.
+multi-round service, aggregation tree, continuous-round engine, flash
+attention and the paper's algorithms on one CUDA card.
 
     python3 chip_smoke.py [--seed N]   # d = 277,845,504; 16 clients; 4 ranks
 
@@ -41,13 +42,38 @@ nothing of the JAX package.  The script
    rotated); and a small world-4 star and butterfly (d = 2^18) give the
    same bits on the card as on the CPU.  A rank that fails, or has not
    finished within ``RANK_TIMEOUT_S``, fails the run;
-6. runs a small round (d = 2^18, 8 clients) once on the card and once on
+6. runs the anchored multi-round service (``agg.service``) lockstep for
+   three rounds at d = 277,845,504 (q = 16, bucket = 4096, y0 = 0.25),
+   warm-started at ``base``; client i of round r sends
+   ``base + 0.01 r drift + 0.02 N(0,1)``, made on the card from
+   ``--seed``.  Each round's fleet of 8 is encoded in ONE launch over
+   8 x 277,848,064 coordinates (past 2^31; the last client's frames must
+   equal its own client's, byte for byte); checks that every client is
+   accepted at attempt 0 in one batched decode launch, that the mean is
+   within 0.51 s of the exact mean per coordinate (s of its bucket), and
+   that round r+1's spec digest is the digest of round r's mean; prints
+   each round's wall time, the time spent in anchor digests and max(y);
+7. runs the sum-without-decode tree (``agg.tree``): 16 clients of round A
+   over 4 edge tiers into the root, at full width, unanchored.  Checks
+   that the tiers dispatch no decode, that the root makes one batched
+   decode per color space it receives, and that the mean equals a flat
+   server's drain of the same frames bit for bit; prints the q each tier
+   forwarded at and the peak device memory; when a tier forwarded at
+   q = 256, holds the batched decode at 8-bit colors against its plain
+   version on the first 2^24 coordinates;
+8. runs the continuous-round engine (``agg.engine``) through
+   ``sim.run_open_loop`` at d = 2^22 (~80 Poisson clients, a flash crowd,
+   churn, stragglers, 3% frame loss), every published round replayed
+   bitwise through a lockstep server; then one trace at d = 2^18 through
+   the engine and a 2-tier tree, once on the card and once on the CPU,
+   bitwise equal;
+9. runs a small round (d = 2^18, 8 clients) once on the card and once on
    the CPU (plain versions) and requires bitwise equal means, and a
    chunked, windowed streaming round on the card that must equal the
    sealed drain bit for bit;
-7. times the round's costs outside the kernels at full width (the threefry
+10. times the round's costs outside the kernels at full width (the threefry
    draws, the anchor digest, one CRC-32 pass over a frame);
-8. runs attention through ``ops.flash_attention`` at three models' full
+11. runs attention through ``ops.flash_attention`` at three models' full
    widths: qwen3-32b prefill (64 query heads x head_dim 128, K/V expanded
    from its 8 KV heads, one sequence of ``prefill_32k``'s 32,768 tokens, the
    batch cut from 32 to 1; bf16, causal), nemotron-4-340b prefill (96 x
@@ -62,7 +88,7 @@ nothing of the JAX package.  The script
    ``scaled_dot_product_attention`` on the same tensors as the library call
    (used nowhere in the port), printing SDPA's own share of the kernel's
    limit against the plain version as information;
-9. runs the paper's algorithms (``repro_torch.core``) on the card: at
+12. runs the paper's algorithms (``repro_torch.core``) on the card: at
    d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
    of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
    butterfly and variance reduction, each checked for ``decode_ok`` and
@@ -72,11 +98,12 @@ nothing of the JAX package.  The script
    functions give the same bits on the card as on the CPU.  This phase
    launches none of the kernels (the rotations there are the plain
    transform), and checks that;
-10. prints the ``kernels`` line, then the ``ok`` line last.
+13. prints the ``kernels`` line, then the ``ok`` line last.
 
 Every count of kernel launches is set to 0 just before each main path
-(rounds A and B; each rank's collectives; the bf16 and the f32 attention
-paths; the paper-algorithms phase) and read just after it; a kernel of a
+(rounds A and B; each rank's collectives; the service, the tree and the
+engine phases; the bf16 and the f32 attention paths; the paper-algorithms
+phase) and read just after it; a kernel of a
 path that was not launched there fails the run, and the ``kernels`` line
 sums the counts of the paths over all ranks.  Any failed check raises before the
 last line is printed.  Without a CUDA device, or without the port beside
@@ -105,6 +132,12 @@ FULL_D = 277_845_504             # whisper-small's parameter count
 CLIENTS = 16                     # clients per full-width round
 WORLD = 4                        # ranks of the collectives phase, one card
 RANK_TIMEOUT_S = 600             # a rank that takes longer fails the run
+SERVICE_ROUNDS = 3               # anchored rounds of the service phase
+SERVICE_CLIENTS = 8              # clients per service round
+TREE_FANOUT = 4                  # edge tiers of the tree phase
+# the open-loop engine's traffic: 4096-coordinate buckets, ~80 clients
+# (Poisson at 100/s over 0.5 s plus one flash crowd of 32)
+ENGINE_TRAFFIC = dict(bucket=4096, rate=100.0)
 KERNEL_SOURCES = {
     "lattice_encode": ("src/repro_torch/kernels/csrc/lattice_encode.cu",
                        "src/repro/kernels/lattice_encode.py:70"),
@@ -299,37 +332,8 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
 
     # --- batched decode: coords mode, per-sender per-bucket sides, each
     # sender's drawn on its own around the round's side
-    words = torch.randint(-(1 << 31), (1 << 31) - 1, (senders, n_pad // 8),
-                          generator=g, device=dev, dtype=torch.int32)
-    s_s = side * (0.5 + torch.rand((senders, nb), generator=g, device=dev))
-    kd = ops.lattice_decode_batched(words, x, u, s_s, q=q, mode="coords",
-                                    bucket=bucket)
-    torch.cuda.synchronize()
-    want = ref.lattice_decode_batched_ref(
-        words[:, :L_ // 8], x[:L_], u[:L_], s_s[:, :L_ // bucket], q=q,
-        bits=bits, n=L_, mode="coords", bucket=bucket)
-    check(torch.equal(kd[:, :L_], want),
-          "lattice_decode_batched disagrees with its plain version")
-    err = max_abs_err(torch, kd[:, :L_], want)
-    del kd, want
-    ms = cuda_ms(torch, lambda: ops.lattice_decode_batched(
-        words, x, u, s_s, q=q, mode="coords", bucket=bucket))
-    step = max(bucket, (SLICE // senders) // bucket * bucket)
-
-    def plain_decode():
-        for c0 in range(0, n_pad, step):
-            c1 = min(n_pad, c0 + step)
-            ref.lattice_decode_batched_ref(
-                words[:, c0 // 8:c1 // 8], x[c0:c1], u[c0:c1],
-                s_s[:, c0 // bucket:c1 // bucket], q=q, bits=bits,
-                n=c1 - c0, mode="coords", bucket=bucket)
-    plain = cuda_ms(torch, plain_decode, reps=1)
-    b, by = bound(senders * n_pad * (bits / 8 + 4) + n_pad * 8
-                  + senders * nb * 4, senders * n_pad * 4)
-    out["lattice_decode_batched"] = dict(
-        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        max_abs_err=err, shape=f"S={senders}, N={n_pad}, q={q}, coords")
-    del words, s_s
+    out["lattice_decode_batched"] = batched_decode_check(
+        torch, x, u, q, senders, bucket, g)
 
     # --- single-payload decode, as the butterfly and recursive halving
     # launch it: coords mode with per-bucket sides drawn at random; also
@@ -380,6 +384,56 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     for name, r in out.items():
         say("kernel_check", name=name, **r)
     return out
+
+
+def batched_decode_check(torch, x, u, q: int, senders: int, bucket: int,
+                         g) -> dict:
+    """The batched decode of ``senders`` random payloads at color space q
+    against anchor x and dither u, in coords mode with per-sender
+    per-bucket sides: bitwise against its plain version on the first 2^24
+    coordinates, timed at the full shape."""
+    from repro_torch.core import lattice as L
+    from repro_torch.kernels import ops, ref
+
+    dev = x.device
+    n_pad = x.shape[0]
+    bits = L.bits_for_q(q)
+    nb = n_pad // bucket
+    side = 2 * 0.25 / 15
+    words = torch.randint(-(1 << 31), (1 << 31) - 1,
+                          (senders, L.packed_len(n_pad, bits)), generator=g,
+                          device=dev, dtype=torch.int32)
+    s_s = side * (0.5 + torch.rand((senders, nb), generator=g, device=dev))
+    L_ = min(SLICE, n_pad)
+    per = 32 // bits
+    kd = ops.lattice_decode_batched(words, x, u, s_s, q=q, mode="coords",
+                                    bucket=bucket)
+    torch.cuda.synchronize()
+    want = ref.lattice_decode_batched_ref(
+        words[:, :L_ // per], x[:L_], u[:L_], s_s[:, :L_ // bucket], q=q,
+        bits=bits, n=L_, mode="coords", bucket=bucket)
+    check(torch.equal(kd[:, :L_], want),
+          f"lattice_decode_batched at q = {q} disagrees with its plain "
+          "version")
+    err = max_abs_err(torch, kd[:, :L_], want)
+    del kd, want
+    ms = cuda_ms(torch, lambda: ops.lattice_decode_batched(
+        words, x, u, s_s, q=q, mode="coords", bucket=bucket))
+    step = max(bucket, (SLICE // senders) // bucket * bucket)
+
+    def plain():
+        for c0 in range(0, n_pad, step):
+            c1 = min(n_pad, c0 + step)
+            ref.lattice_decode_batched_ref(
+                words[:, c0 // per:c1 // per], x[c0:c1], u[c0:c1],
+                s_s[:, c0 // bucket:c1 // bucket], q=q, bits=bits,
+                n=c1 - c0, mode="coords", bucket=bucket)
+    plain_ms = cuda_ms(torch, plain, reps=1)
+    b, by = bound(senders * n_pad * (bits / 8 + 4) + n_pad * 8
+                  + senders * nb * 4, senders * n_pad * 4)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=None, max_abs_err=err,
+                shape=f"S={senders}, N={n_pad}, q={q}, coords")
 
 
 def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
@@ -622,7 +676,7 @@ def rounds_ab(torch, d: int, n_clients: int, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: card vs CPU, and the streaming drain
+# Phase 9: card vs CPU, and the streaming drain
 # ---------------------------------------------------------------------------
 
 def small_rounds(torch, seed: int) -> None:
@@ -684,7 +738,7 @@ def small_rounds(torch, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the collectives, four ranks on one card over a gloo group
+# Phase 5: the collectives, four ranks on one card over a gloo group
 # ---------------------------------------------------------------------------
 
 def _gather_floats(torch, vals) -> "list[list[float]]":
@@ -959,6 +1013,386 @@ def collectives(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-8: the multi-round service, the tree and the engine
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def digest_timer(acc):
+    """While open, time every anchor digest (host clock; it copies the
+    anchor to the host) into ``acc["seconds"]`` and count them in
+    ``acc["calls"]``; the function is restored on exit."""
+    from repro_torch.agg import rounds
+
+    digest = rounds.anchor_digest
+
+    def timed(anchor):
+        t0 = time.perf_counter()
+        r = digest(anchor)
+        acc["seconds"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        return r
+
+    rounds.anchor_digest = timed
+    try:
+        yield
+    finally:
+        rounds.anchor_digest = digest
+
+
+def launched(_build, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
+
+
+def agg_service(torch, seed: int) -> dict:
+    """Three lockstep rounds of the anchored service at full width: the
+    whole fleet encoded in one launch over S x padded coordinates (past
+    2^31), frames as bytes, one batched decode per drain, the mean fed
+    back as the next round's anchor and its decode telemetry into y."""
+    from repro_torch.agg import rounds, sim
+    from repro_torch.agg.client import AggClient
+    from repro_torch.agg.service import AggService, ServiceConfig
+    from repro_torch.agg.transport import frame as wire
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    d, n = FULL_D, SERVICE_CLIENTS
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    base = torch.randn(d, generator=g, device=dev)
+    drift = torch.randn(d, generator=g, device=dev)
+    cfg = ServiceConfig(d=d, q=16, bucket=4096, y0=0.25, seed=seed)
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    # warm start: round 1 anchors at the previous model state
+    svc = AggService(cfg, anchor0=base)
+    prev_digest = None
+    phase = {k: 0 for k in _build.LAUNCHES}
+    for r in range(SERVICE_ROUNDS):
+        xs = torch.empty((n, d), device=dev)
+        exact = torch.zeros(d, dtype=torch.float64, device=dev)
+        for i in range(n):
+            torch.add(base, drift, alpha=0.01 * r, out=xs[i])
+            xs[i] += 0.02 * torch.randn(d, generator=g, device=dev)
+            exact += xs[i].to(torch.float64)
+        exact /= n
+        before = dict(_build.LAUNCHES)
+        dig = dict(seconds=0.0, calls=0)
+        t = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with digest_timer(dig):
+            spec, anchor = svc.begin_round()
+            server = svc.make_server()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            frames = sim.fleet_frames(spec, xs, anchor=anchor)
+            t2 = time.perf_counter()
+            for fs in frames:
+                for f in fs:
+                    server.receive(f)
+            t3 = time.perf_counter()
+            dec0 = _build.LAUNCHES["lattice_decode_batched"]
+            responses = server.drain()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            dec = _build.LAUNCHES["lattice_decode_batched"] - dec0
+            mean, stats = svc.end_round(server)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+        t = dict(open_round=t1 - t0, encode_and_frame=t2 - t1,
+                 receive=t3 - t2, drain=t4 - t3, publish=t5 - t4)
+        wall = t5 - t0
+        counts = launched(_build, before)
+        phase = {k: phase[k] + counts[k] for k in phase}
+        check_responses(responses, n, f"service round {r + 1}")
+        check(dec == 1, f"service round {r + 1}: the drain made {dec} "
+              "batched decode launches")
+        check(counts["lattice_encode"] == 1,
+              f"service round {r + 1}: {counts['lattice_encode']} encode "
+              "launches for the fleet")
+        check(stats.accepted == n and stats.decode_failures == 0
+              and stats.nacks_sent == 0,
+              f"service round {r + 1}: accepted {stats.accepted} of {n}")
+        check(tuple(mean.shape) == (d,) and bool(torch.isfinite(mean).all()),
+              f"service round {r + 1}: the mean is not a finite (d,) vector")
+        if prev_digest is not None:
+            check(spec.anchor_digest == prev_digest,
+                  f"service round {r + 1}: the spec's digest "
+                  f"{spec.anchor_digest:#x} is not that of round {r}'s mean "
+                  f"({prev_digest:#x})")
+        # per coordinate within 0.51 s of its bucket
+        err = torch.nn.functional.pad(
+            (mean.to(torch.float64) - exact).abs(), (0, spec.padded - d))
+        err_b = err.reshape(spec.nb, spec.cfg.bucket).amax(dim=1)
+        sides = torch.from_numpy(spec.sides_np()).to(dev, torch.float64)
+        share = float((err_b / (0.51 * sides)).max())
+        check(share <= 1.0, f"service round {r + 1}: |mean - exact| reaches "
+              f"{share} of 0.51 s in some bucket")
+        same_client = None
+        if r == 0:
+            # the last client's words lie past coordinate 2^31 of the
+            # fleet's one encode: equal to its own client's, byte for byte
+            c = AggClient(spec, n - 1, xs[n - 1], anchor=anchor)
+            same_client = c.frames() == frames[n - 1]
+            check(same_client, "service round 1: the fleet encode past "
+                  "2^31 differs from the client's own encode")
+            del c
+        del xs, exact, err, frames, server
+        t0 = time.perf_counter()
+        prev_digest = rounds.anchor_digest(mean)
+        check_digest_s = time.perf_counter() - t0
+        say("agg_service_round", round=r + 1, d=d, clients=n,
+            fleet_coordinates=n * spec.padded, anchored=spec.anchored,
+            accepted=stats.accepted, attempt0=True, decode_launches=dec,
+            encode_launches=counts["lattice_encode"], wall_s=wall,
+            seconds=t, digest_s=dig["seconds"], digests=dig["calls"],
+            check_digest_s=check_digest_s, max_y=float(svc.y.max()),
+            mean_y=float(svc.y.mean()), max_err_share_of_bound=share,
+            fleet_equals_client_past_2_31=same_client)
+        del mean
+    for name in ("lattice_encode", "lattice_decode_batched"):
+        check(phase[name] > 0,
+              f"kernel {name} was not launched by the service")
+    say("agg_service", rounds=SERVICE_ROUNDS, clients=n, d=d,
+        seconds=time.perf_counter() - t_phase, launches=phase,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del svc, base, drift
+    torch.cuda.empty_cache()
+    return phase
+
+
+def agg_tree(torch, seed: int) -> dict:
+    """16 clients over one layer of 4 edge tiers into the root, at full
+    width, unanchored: the tiers fold integer residuals on the card and
+    never decode; the root decodes once per color space it receives; the
+    mean equals a flat server's drain of the same frames bit for bit."""
+    from repro_torch.agg import sim
+    from repro_torch.agg.server import AggServer
+    from repro_torch.agg.transport import chunks as C
+    from repro_torch.agg.transport import frame as wire
+    from repro_torch.agg.tree import AggTree
+    from repro_torch.dist.collectives import QSyncConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    d, n = FULL_D, CLIENTS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randn(d, generator=g, device=dev)
+    spec = wire.RoundSpec(round_id=1, d=d, cfg=QSyncConfig(q=16, bucket=4096),
+                          y0=0.25, seed=seed)
+    _build.reset_launch_counts()
+    ops.reset_dispatch_counts()
+    t_phase = time.perf_counter()
+    # the clients: two fleet encodes of 8 (each past 2^31 coordinates)
+    frames = []
+    t0 = time.perf_counter()
+    half = n // 2
+    for c0 in (0, half):
+        xs = torch.stack([client_vector(torch, base, seed, i)
+                          for i in range(c0, c0 + half)])
+        words, sides_np, checks = sim.fleet_encode(spec, xs)
+        del xs
+        frames.extend(C.encode_chunks(spec, c0 + i, 0, spec.cfg.q, words[i],
+                                      sides_np, int(checks[i]))
+                      for i in range(half))
+        del words
+    t_clients = time.perf_counter() - t0
+    encodes = dict(_build.LAUNCHES)      # the clients' part of the path
+    torch.cuda.empty_cache()
+
+    # the flat server over the same frames (its drain is the comparison,
+    # not the path: its launches are left out of the phase's counts)
+    t0 = time.perf_counter()
+    flat = AggServer(spec, base)
+    for fs in frames:
+        for f in fs:
+            flat.receive(f)
+    flat.drain()
+    flat_mean, flat_stats = flat.finalize()
+    torch.cuda.synchronize()
+    t_flat = time.perf_counter() - t0
+    check(flat_stats.accepted == n, f"tree phase: the flat server accepted "
+          f"{flat_stats.accepted} of {n}")
+    del flat
+    torch.cuda.empty_cache()
+
+    # the tree
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_build.LAUNCHES)
+    ops.reset_dispatch_counts()
+    t = {}
+    t0 = time.perf_counter()
+    tree = AggTree(spec, base, fanout=TREE_FANOUT, tiers=1)
+    torch.cuda.synchronize()
+    t["setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for fs in frames:
+        for f in fs:
+            tree.ingest_frame(f)
+    t["ingest"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree.tick()                          # every tier folds its children
+    torch.cuda.synchronize()
+    t["tier_folds"] = time.perf_counter() - t0
+    tier_decodes = ops.DISPATCH_COUNTS["lattice_decode_batched"] + \
+        ops.DISPATCH_COUNTS["lattice_decode"]
+    t0 = time.perf_counter()
+    tree.seal()
+    ticks = 0
+    while not tree.published():
+        check(ticks < 16, "tree phase: the tree did not publish")
+        tree.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    t["forward_and_root"] = time.perf_counter() - t0
+    pub = tree.published()[0]
+    wall = sum(t.values())
+    counts = launched(_build, before)
+    spaces = sorted({tr.forwarded_q for tr in tree.layers[0]})
+    root_decodes = ops.DISPATCH_COUNTS["lattice_decode_batched"]
+    check(tier_decodes == 0, f"tree phase: the tiers made {tier_decodes} "
+          "decode dispatches")
+    check(ops.DISPATCH_COUNTS["lattice_decode"] == 0,
+          "tree phase: a single-payload decode was dispatched")
+    check(root_decodes == len(spaces) == counts["lattice_decode_batched"],
+          f"tree phase: the root made {root_decodes} batched decodes "
+          f"({counts['lattice_decode_batched']} launches) for color spaces "
+          f"{spaces}")
+    check(pub.accepted == frozenset(range(n)),
+          f"tree phase: the tree accepted {sorted(pub.accepted)}")
+    check(torch.equal(pub.mean.view(torch.int32),
+                      flat_mean.view(torch.int32)),
+          "tree phase: the tree's mean differs from the flat drain's")
+    stats = tree.tier_stats()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say("agg_tree", d=d, clients=n, fanout=TREE_FANOUT, tiers=1,
+        forwarded_q=[tr.forwarded_q for tr in tree.layers[0]],
+        color_spaces=spaces, tier_decode_dispatches=tier_decodes,
+        root_decode_dispatches=root_decodes,
+        root_drains=tree.root.stats.drains,
+        root_payloads=tree.root_ingress_payloads,
+        tier_accepted=[s.accepted for s in stats],
+        tier_bytes_out=[s.bytes_out for s in stats],
+        equals_flat_drain=True, wall_s=wall, seconds=t,
+        clients_encode_s=t_clients, flat_server_s=t_flat,
+        launches=counts, peak_device_gb=peak)
+    # the phase's path: the clients' encodes and the tree's own launches
+    phase = {k: encodes.get(k, 0) + counts[k] for k in counts}
+    del tree, pub, flat_mean, frames
+    torch.cuda.empty_cache()
+    if 256 in spaces:
+        # the root's payloads at 8-bit colors: that shape of the batched
+        # decode held against its plain version (not counted)
+        g = torch.Generator(device=dev).manual_seed(seed + 13)
+        x = torch.randn(spec.padded, generator=g, device=dev)
+        u = torch.rand(spec.padded, generator=g, device=dev) - 0.5
+        say("kernel_check", name="lattice_decode_batched_q256",
+            **batched_decode_check(torch, x, u, 256, TREE_FANOUT,
+                                   spec.cfg.bucket, g))
+        del x, u
+        torch.cuda.empty_cache()
+    say("agg_tree_phase", seconds=time.perf_counter() - t_phase,
+        launches=phase, q256_checked=256 in spaces)
+    return phase
+
+
+def agg_engine_small(torch, seed: int) -> dict:
+    """The continuous-round engine on the card: ``run_open_loop`` at
+    d = 2^22 with every published round replayed through a lockstep
+    server; then one trace at d = 2^18 through the engine and a 2-tier
+    tree once on the card and once on the CPU, bitwise equal."""
+    import numpy as np
+
+    from repro_torch.agg import sim
+    from repro_torch.agg.transport import frame as wire
+    from repro_torch.agg.tree import AggTree
+    from repro_torch.dist.collectives import QSyncConfig
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    t_phase = time.perf_counter()
+    cfg = sim.OpenLoopConfig(d=1 << 22, mtu=1 << 19, seed=seed,
+                             **ENGINE_TRAFFIC)
+    t0 = time.perf_counter()
+    rep = sim.run_open_loop(cfg, check_parity=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)       # the engine's path alone
+    check(rep.rounds >= 2 and rep.accepted_total > 0,
+          f"engine: {rep.rounds} rounds published, {rep.accepted_total} "
+          "clients accepted")
+    check(all(pr.mean.device.type == "cuda" for pr in rep.published),
+          "engine: a published mean is not on the card")
+    for name in ("lattice_encode", "lattice_decode_batched"):
+        check(counts[name] > 0,
+              f"kernel {name} was not launched by the engine")
+    # replay parity, outside the counts: every published round re-drained
+    # lockstep over its accepted clients gives the same mean bit for bit
+    t0 = time.perf_counter()
+    trace = sim._make_trace(cfg)         # the same numpy draws again
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pr in rep.published:
+        sim.replay_published_round(trace, pr)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    del trace
+    say("agg_engine", d=cfg.d, rounds=rep.rounds,
+        clients_arrived=rep.clients_arrived,
+        accepted_total=rep.accepted_total, expired_total=rep.expired_total,
+        retried_total=rep.retried_total, resends_total=rep.resends_total,
+        max_live_rounds=rep.max_live_rounds, replay_parity=True,
+        p50_latency_virtual_s=rep.p50_latency,
+        p99_latency_virtual_s=rep.p99_latency, wall_s=wall,
+        trace_s=trace_s, replay_s=replay_s, launches=counts)
+
+    # card == CPU on one small trace: the engine, then a 2-tier tree
+    small = sim.OpenLoopConfig(d=1 << 18, mtu=1 << 15, seed=seed,
+                               **ENGINE_TRAFFIC)
+    pubs = {}
+    for dev in ("cuda", "cpu"):
+        pubs[dev] = sim.run_open_loop(small, check_parity=False,
+                                      device=dev).published
+    check([p.round_id for p in pubs["cuda"]]
+          == [p.round_id for p in pubs["cpu"]]
+          and all(a.accepted == b.accepted and torch.equal(
+              a.mean.cpu().view(torch.int32), b.mean.view(torch.int32))
+              for a, b in zip(pubs["cuda"], pubs["cpu"])),
+          "engine: the card's published rounds differ from the CPU's")
+    d2, n2 = 1 << 18, 24
+    rng = np.random.RandomState(seed)
+    base = rng.randn(d2).astype(np.float32)
+    xs = base[None] + 0.02 * rng.randn(n2, d2).astype(np.float32)
+    spec = wire.RoundSpec(round_id=3, d=d2, cfg=QSyncConfig(q=16, bucket=4096),
+                          y0=0.25, seed=seed)
+    frames = sim.fleet_frames(spec, xs)
+    means = {}
+    for dev in ("cuda", "cpu"):
+        tree = AggTree(spec, base, fanout=4, tiers=2, device=dev)
+        for fs in frames:
+            for f in fs:
+                tree.ingest_frame(f)
+        tree.tick()
+        tree.seal()
+        for _ in range(16):
+            tree.tick()
+            if tree.published():
+                break
+        pr = tree.published()
+        check(len(pr) == 1 and pr[0].accepted == frozenset(range(n2)),
+              f"2-tier tree on {dev} did not publish every client")
+        means[dev] = pr[0].mean.cpu()
+    check(torch.equal(means["cuda"].view(torch.int32),
+                      means["cpu"].view(torch.int32)),
+          "2-tier tree: the card's mean differs from the CPU's")
+    say("agg_engine_small", engine_rounds=len(pubs["cuda"]),
+        engine_card_equals_cpu=True, tree_d=d2, tree_clients=n2,
+        tree_card_equals_cpu=True, seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def host_costs(torch, d: int, seed: int) -> None:
     """Time the round's non-kernel costs at full width, one at a time:
     the two threefry draws a party makes (dither, checksum weights), the
@@ -992,7 +1426,7 @@ def host_costs(torch, d: int, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: attention at full width
+# Phase 11: attention at full width
 # ---------------------------------------------------------------------------
 
 def attention_inputs(torch, heads: int, kv_heads: int, hd: int, seq: int,
@@ -1122,7 +1556,7 @@ def attention(torch, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the paper's algorithms
+# Phase 12: the paper's algorithms
 # ---------------------------------------------------------------------------
 
 def _timed(torch, fn):
@@ -1312,6 +1746,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     coll = collectives(args.seed)
     counts = {k: counts[k] + coll[k] for k in COLLECTIVE_KERNELS}
+    for phase in (agg_service, agg_tree, agg_engine_small):
+        got = phase(torch, args.seed)
+        counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}
     small_rounds(torch, args.seed)
     host_costs(torch, FULL_D, args.seed)
     for name, (entry, launches) in attention(torch, args.seed).items():

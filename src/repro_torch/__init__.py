@@ -5,6 +5,14 @@ package's layout and names (``core/``, ``kernels/``, ``dist/``, ``agg/``,
 ``obs/``) so each module's counterpart is easy to find.  It imports torch,
 numpy and the standard library only.
 
+Its endpoints: the aggregation protocol of ``agg/`` — the client
+(``AggClient``), the flat server (``AggServer``), the multi-round
+anchored service (``AggService``), the continuous-round engine
+(``AggEngine``), the sum-without-decode tree (``AggTree``), composed by
+``AggConfig`` and driven by ``agg.sim``; the quantized mean collectives of
+``dist.collectives``; the paper's algorithms in ``core``; and
+``kernels.ops.flash_attention``.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no explicit device they raise —
 they never move to the CPU on their own.  On the CPU every kernel wrapper

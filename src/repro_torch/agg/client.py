@@ -35,10 +35,6 @@ from repro_torch.core import lattice as L
 from repro_torch.kernels import ops as K
 
 
-def _as_f32(v, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(v).to(device=device, dtype=torch.float32)
-
-
 class AggClient:
     """One client's state for one aggregation round.
 
@@ -62,9 +58,9 @@ class AggClient:
         # for admission (this round: re-send after backoff; another round:
         # re-enroll there; None: no hint).  Never terminal.
         self.retry_round: Optional[int] = None
-        self._xflat = rounds.bucketize(_as_f32(x, self.device),
+        self._xflat = rounds.bucketize(rounds.as_f32(x, self.device),
                                        spec).reshape(-1)
-        self._aflat = (rounds.bucketize(_as_f32(anchor, self.device),
+        self._aflat = (rounds.bucketize(rounds.as_f32(anchor, self.device),
                                         spec).reshape(-1)
                        if spec.anchored else None)
         self._u = rounds.dither(spec, self.device).reshape(-1)

@@ -8,7 +8,8 @@ per-bucket sides and, in anchored rounds, the anchor itself (pinned by its
 CRC-32 digest).  The draws come from :mod:`repro_torch.random`, bit-exact
 with the reference's ``jax.random``, so port and reference parties of one
 round agree bit for bit.  Every tensor is made on the device the caller
-names.
+names: the CUDA device unless it names another; with no card and no
+device named the helpers raise.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as _random
+from repro_torch import resolve_device
 from repro_torch.agg.transport import frame as W
 from repro_torch.core import bucketing as B
 from repro_torch.core import error_detect as ED
@@ -58,6 +60,12 @@ def rotation_diag(spec: W.RoundSpec, device=None) -> torch.Tensor:
                               spec.cfg.bucket, device=device)
 
 
+def as_f32(v, device) -> torch.Tensor:
+    """A numpy array or tensor as an f32 tensor on ``device`` (a CPU
+    numpy array of f32 is shared, not copied, as ``np.asarray`` shares)."""
+    return torch.as_tensor(v).to(device=device, dtype=torch.float32)
+
+
 def bucketize(x: torch.Tensor, spec: W.RoundSpec) -> torch.Tensor:
     """Flat (d,) -> (nb, bucket) f32, zero-padded, HD-rotated if configured
     (the rotation through the FWHT kernel when the round is packed)."""
@@ -77,7 +85,7 @@ def sides(spec: W.RoundSpec, device=None) -> torch.Tensor:
     Eager torch divides by it with a true IEEE division, so the pinning the
     reference needs against a compiler's reciprocal rewrite has no
     counterpart here."""
-    return torch.from_numpy(spec.sides_np()).to(device)
+    return torch.from_numpy(spec.sides_np()).to(resolve_device(device))
 
 
 def decode_ref_coords(spec: W.RoundSpec, anchor: Optional[torch.Tensor] = None,
@@ -89,6 +97,7 @@ def decode_ref_coords(spec: W.RoundSpec, anchor: Optional[torch.Tensor] = None,
     rounds against the bucketized server anchor.  The per-bucket sides
     broadcast over each bucket instead of being repeated out to (padded,).
     """
+    device = resolve_device(device)
     if spec.anchored or anchor is None:
         ref_b = torch.zeros((spec.nb, spec.cfg.bucket), dtype=torch.float32,
                             device=device)

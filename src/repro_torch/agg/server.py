@@ -247,7 +247,7 @@ class AggServer:
         # the decode's reference coordinates (padded,) int32
         self._k0 = rounds.decode_ref_coords(
             spec, None if spec.anchored else anchor_t, dev)
-        self._anchor_raw = anchor_t.cpu().numpy().copy()
+        self._anchor_t = anchor_t
         self._published: list[PublishedRound] = []
         self._pending: dict[int, wire.Payload] = {}
         self._pending_bytes = 0   # bodies staged for the batched drain
@@ -535,7 +535,10 @@ class AggServer:
         mean, stats = self.finalize()
         self._published.append(PublishedRound(
             round_id=self.spec.round_id, spec=self.spec,
-            anchor=self._anchor_raw if self.spec.anchored else None,
+            # copied here, the one reader: the published anchor never
+            # aliases the caller's array or tensor (the service and the
+            # engine publish through Round and never pay for the copy)
+            anchor=self._anchor_t.clone() if self.spec.anchored else None,
             mean=mean, stats=stats, accepted=self.accepted_clients,
             opened_at=0.0, sealed_at=0.0, published_at=0.0,
             anchor_round=0, staleness=0.0))

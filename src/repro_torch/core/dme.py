@@ -62,7 +62,7 @@ def mean_estimation_star(xs: torch.Tensor, y, comp: Compressor, key,
     ctx = dataclasses.replace(ctx or CompressorCtx(), y=y)
     kl, kb, *ks = _random.split(key, n + 2)
     if leader is None:
-        leader = int(_random.randint(kl, (), 0, n))
+        leader = int(_random.randint(kl, (), 0, n, device=xs.device))
     x_leader = xs[leader]
 
     # Phase 1: everyone -> leader; leader decodes against its own input.

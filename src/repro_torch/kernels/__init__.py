@@ -1,1 +1,5 @@
-"""Kernels of the port: CUDA C++ sources, their wrappers and plain versions."""
+"""Kernels of the port: CUDA C++ sources (``csrc/``), their wrappers, the
+plain torch versions (``ref.py``) and the public entry points
+(``ops.py``); counterpart of ``repro.kernels``.
+"""
+from repro_torch.kernels import ops

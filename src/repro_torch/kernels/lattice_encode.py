@@ -16,6 +16,10 @@ from repro_torch.core import lattice as L
 from repro_torch.kernels import _build
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the launch covers n coordinates with 256-thread blocks in a 1-D grid of
+# at most 2^31 - 1 blocks; inside, every index is int64, so n may pass 2^31
+_THREADS = 256
+MAX_N = ((1 << 31) - 1) * _THREADS
 
 
 def _launcher():
@@ -39,6 +43,9 @@ def lattice_encode_cuda(x: torch.Tensor, u: torch.Tensor, s,
     dev = x.device
     n = x.numel()
     _build.check_lattice_shape("encode", q, bits, n)
+    if n > MAX_N:
+        raise ValueError(f"the encode kernel takes at most {MAX_N} "
+                         f"coordinates in one launch, got {n}")
     _build.check_tensor(x, "x", torch.float32, dev, (n,))
     _build.check_tensor(u, "u", torch.float32, dev, (n,))
     if anchor is not None:

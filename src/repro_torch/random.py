@@ -18,7 +18,9 @@ This module reproduces exactly the calls the protocol makes, in JAX's
   them from ``split`` and ``bits`` (``normal`` only to ``allclose``: torch's
   ``erfinv`` is not XLA's).
 
-A key is a pair of Python ints.  Bulk draws run on the caller's device in
+A key is a pair of Python ints.  Bulk draws run on the device the caller
+names — the CUDA device unless it names another (``device="cpu"``); with
+no card and no device they raise, as the port's entry points do — in
 plain torch int64 masked to 32 bits (torch has no unsigned 32-bit
 arithmetic), in chunks so that no int64 temporary exceeds a few hundred MB
 whatever the draw size.  uint32 results are returned as int32 bit views.
@@ -29,6 +31,8 @@ import math
 from typing import Sequence, Union
 
 import torch
+
+from repro_torch import resolve_device
 
 Key = tuple  # (k1, k2), each in [0, 2^32)
 _M32 = 0xFFFFFFFF
@@ -114,7 +118,8 @@ def as_int32_bits(v: torch.Tensor) -> torch.Tensor:
 
 def bits(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int32 bit view."""
-    return _draw(key, shape, device, torch.int32, as_int32_bits)
+    return _draw(key, shape, resolve_device(device), torch.int32,
+                 as_int32_bits)
 
 
 def _unit_floats(v: torch.Tensor) -> torch.Tensor:
@@ -127,6 +132,7 @@ def _unit_floats(v: torch.Tensor) -> torch.Tensor:
 def uniform(key: Key, shape: Shape, minval: float = 0.0, maxval: float = 1.0,
             *, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    device = resolve_device(device)
     lo = torch.tensor(minval, dtype=torch.float32)
     span = torch.tensor(maxval, dtype=torch.float32) - lo
     lo_d, span_d = lo.to(device), span.to(device)
@@ -141,7 +147,7 @@ def rademacher(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
     bernoulli(0.5) draw ``uniform < 0.5`` holds, else -1."""
     def fn(v):
         return torch.where(_unit_floats(v) < 0.5, 1.0, -1.0)
-    return _draw(key, shape, device, torch.float32, fn)
+    return _draw(key, shape, resolve_device(device), torch.float32, fn)
 
 
 def randint(key: Key, shape: Shape, minval: int, maxval: int, *,
@@ -152,6 +158,7 @@ def randint(key: Key, shape: Shape, minval: int, maxval: int, *,
     ``(hi % span) * ((2^16 % span)^2 % span) + lo % span`` in wrapping
     uint32 arithmetic, then ``% span``.  A span of 0 or less gives
     ``minval``."""
+    device = resolve_device(device)
     minval, maxval = int(minval), int(maxval)
     span = maxval - minval if maxval > minval else 1
     k1, k2 = split(key)
@@ -167,6 +174,7 @@ def permutation(key: Key, n: int, *, device=None) -> torch.Tensor:
     fresh 32-bit keys in ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each
     round's key split off the last.  The sort is stable, as jax's is, so
     tied keys keep their order."""
+    device = resolve_device(device)
     n = int(n)
     rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
     x = torch.arange(n, dtype=torch.int32, device=device)

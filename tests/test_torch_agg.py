@@ -281,7 +281,9 @@ def test_convert_tensor_runs_on_the_card_unless_asked(monkeypatch):
 
 def test_port_imports_no_jax_and_no_reference():
     code = ("import sys, repro_torch.agg.server, repro_torch.agg.client, "
-            "repro_torch.convert, repro_torch.kernels.ops; "
+            "repro_torch.agg.service, repro_torch.agg.engine, "
+            "repro_torch.agg.tree, repro_torch.agg.sim, repro_torch.agg, "
+            "repro_torch.dist, repro_torch.convert, repro_torch.kernels.ops; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; "

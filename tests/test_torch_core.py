@@ -65,7 +65,7 @@ def test_checksum_weights_and_coord_checksum_bitwise(d):
     key = jax.random.fold_in(jax.random.PRNGKey(9), 4)
     kt = TR.fold_in(TR.PRNGKey(9), 4)
     w = np.asarray(JED.checksum_weights(key, d))
-    wt = TED.checksum_weights(kt, d)
+    wt = TED.checksum_weights(kt, d, device="cpu")
     np.testing.assert_array_equal(wt.numpy().view(np.uint32), w)
     rng = np.random.RandomState(d)
     k = rng.randint(-(1 << 31), (1 << 31) - 1, (3, d)).astype(np.int32)
@@ -80,7 +80,7 @@ def test_checksum_weights_and_coord_checksum_bitwise(d):
 def test_coord_checksum_chunked_matches_one_shot(monkeypatch):
     rng = np.random.RandomState(1)
     k = _t(rng.randint(-5000, 5000, (4, 3000)).astype(np.int32))
-    w = TED.checksum_weights(TR.PRNGKey(2), 3000)
+    w = TED.checksum_weights(TR.PRNGKey(2), 3000, device="cpu")
     whole = TED.coord_checksum(k, w, axis=-1)
     monkeypatch.setattr(TED, "_CHUNK_ELEMS", 100)
     np.testing.assert_array_equal(TED.coord_checksum(k, w, axis=-1).numpy(),
@@ -104,7 +104,8 @@ def test_bucketize_rotated():
     d, bucket = 1000, 128
     x = np.random.RandomState(d).randn(d).astype(np.float32)
     diag = JRot.rotation_keypair(jax.random.PRNGKey(20210507), bucket)
-    diag_t = TRot.rotation_keypair(TR.PRNGKey(20210507), bucket)
+    diag_t = TRot.rotation_keypair(TR.PRNGKey(20210507), bucket,
+                                   device="cpu")
     np.testing.assert_array_equal(diag_t.numpy(), np.asarray(diag))
     want = np.asarray(JB.bucketize(jnp.asarray(x), bucket, diag=diag,
                                    use_kernel=False))
@@ -128,21 +129,21 @@ def test_round_randomness_and_ref_coords_bitwise(rotate, anchored):
                       else 0)
     ts = convert.round_spec(dataclasses.asdict(js))
     assert ts == dataclasses.replace(ts) and ts.padded == js.padded
-    np.testing.assert_array_equal(TRd.dither(ts).numpy(),
+    np.testing.assert_array_equal(TRd.dither(ts, "cpu").numpy(),
                                   np.asarray(JR.dither(js)))
     np.testing.assert_array_equal(
-        TRd.checksum_weights(ts).numpy().view(np.uint32),
+        TRd.checksum_weights(ts, "cpu").numpy().view(np.uint32),
         np.asarray(JR.checksum_weights(js)))
-    np.testing.assert_array_equal(TRd.rotation_diag(ts).numpy(),
+    np.testing.assert_array_equal(TRd.rotation_diag(ts, "cpu").numpy(),
                                   np.asarray(JR.rotation_diag(js)))
-    np.testing.assert_array_equal(TRd.sides(ts).numpy(),
+    np.testing.assert_array_equal(TRd.sides(ts, "cpu").numpy(),
                                   np.asarray(JR.sides(js)))
     ta = convert.tensor(anchor, device="cpu")
     assert TRd.anchor_digest(ta) == JR.anchor_digest(anchor)
     assert TRd.fold_seed(77, 5) == JR.fold_seed(77, 5)
     if not rotate:
         np.testing.assert_array_equal(
-            TRd.decode_ref_coords(ts, ta).numpy(),
+            TRd.decode_ref_coords(ts, ta, "cpu").numpy(),
             np.asarray(JR.decode_ref_coords(js, anchor)))
 
 

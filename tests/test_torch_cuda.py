@@ -325,3 +325,48 @@ def test_dme_on_card_bitwise_equals_cpu(cuda):
         (ra[1]["iters"], ra[1]["bits"], ra[1]["ok"])
     assert ra[0]["ok"] and ra[0]["iters"] >= 2
     np.testing.assert_array_equal(ra[0]["z"].cpu().numpy(), ra[1]["z"].numpy())
+
+
+def test_service_tree_and_engine_on_card_bitwise_equal_cpu(cuda):
+    """A two-round anchored service chain, a 2-tier tree and an open-loop
+    engine run give the same bits on the card as on the CPU."""
+    from repro_torch.agg import sim
+    from repro_torch.agg.service import AggService, ServiceConfig
+    from repro_torch.agg.tree import AggTree
+
+    d = 4096
+    rng = np.random.RandomState(3)
+    base = rng.randn(d).astype(np.float32)
+    xs = base[None] + 0.02 * rng.randn(12, d).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        svc = AggService(ServiceConfig(d=d, bucket=512, y0=0.5),
+                         anchor0=base, device=dev)
+        means = []
+        for _ in range(2):
+            spec, anchor = svc.begin_round()
+            server = svc.make_server()
+            for f in sim.fleet_payloads(spec, xs[:6], anchor=anchor,
+                                        device=dev):
+                server.receive(f)
+            means.append(svc.end_round(server)[0].cpu())
+        spec = wire.RoundSpec(round_id=1, d=d,
+                              cfg=QSyncConfig(q=16, bucket=512), y0=0.5)
+        tree = AggTree(spec, base, fanout=2, tiers=2, device=dev)
+        for fs in sim.fleet_frames(spec, xs, device=dev):
+            for f in fs:
+                tree.ingest_frame(f)
+        tree.tick()
+        tree.seal()
+        for _ in range(16):
+            tree.tick()
+            if tree.published():
+                break
+        means.append(tree.published()[0].mean.cpu())
+        rep = sim.run_open_loop(sim.OpenLoopConfig(duration=0.2),
+                                check_parity=dev == "cuda", device=dev)
+        means.extend(pr.mean.cpu() for pr in rep.published)
+        out[dev] = means
+    assert len(out["cuda"]) == len(out["cpu"]) >= 4
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -50,13 +50,13 @@ def test_randint_and_permutation_bitwise(seed):
     jk, tk = jax.random.PRNGKey(seed), TR.PRNGKey(seed)
     for n in (1, 2, 5, 8, 1000, 1700):       # 1700 takes two shuffle rounds
         assert int(jax.random.randint(jk, (), 0, n)) == \
-            int(TR.randint(tk, (), 0, n))
+            int(TR.randint(tk, (), 0, n, device="cpu"))
         np.testing.assert_array_equal(
-            TR.permutation(tk, n).numpy(),
+            TR.permutation(tk, n, device="cpu").numpy(),
             np.asarray(jax.random.permutation(jk, n)))
     for lo, hi in ((0, 100000), (-5, 2 ** 31 - 1), (3, 3)):
         np.testing.assert_array_equal(
-            TR.randint(tk, (3, 100), lo, hi).numpy(),
+            TR.randint(tk, (3, 100), lo, hi, device="cpu").numpy(),
             np.asarray(jax.random.randint(jk, (3, 100), lo, hi)))
 
 
@@ -67,7 +67,7 @@ def test_normal_allclose():
     for seed in (0, 3):
         want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed),
                                             (64, 4)))
-        got = TR.normal(TR.PRNGKey(seed), (64, 4)).numpy()
+        got = TR.normal(TR.PRNGKey(seed), (64, 4), device="cpu").numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -123,7 +123,7 @@ def test_compressor_roundtrip_and_wire_bytes(name):
     x = _vec(1)
     a = x + _vec(2, scale=0.1)
     jdiag = JR.rotation_keypair(jax.random.PRNGKey(0), D)
-    tdiag = TRo.rotation_keypair(TR.PRNGKey(0), D)
+    tdiag = TRo.rotation_keypair(TR.PRNGKey(0), D, device="cpu")
     jc, tc = JC.make_compressor(name), TC.make_compressor(name)
     jctx = JC.CompressorCtx(y=1.0, diag=jdiag)
     tctx = TC.CompressorCtx(y=1.0, diag=tdiag)
@@ -226,7 +226,7 @@ def test_detecting_encoder_bitwise():
     d, q, y = 128, 8, 1.0
     x = _vec(5, d, scale=5.0)
     jw = JE.checksum_weights(jax.random.PRNGKey(0), d)
-    tw = TE.checksum_weights(TR.PRNGKey(0), d)
+    tw = TE.checksum_weights(TR.PRNGKey(0), d, device="cpu")
     jenc, tenc = JE.DetectingEncoder(q=q), TE.DetectingEncoder(q=q)
     jp = jenc.encode(jnp.asarray(x), y, jw, key=jax.random.PRNGKey(1))
     tp = tenc.encode(torch.from_numpy(x), y, tw, key=TR.PRNGKey(1))

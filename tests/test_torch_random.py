@@ -28,25 +28,29 @@ def test_bits_uniform_rademacher(seed, shape):
     k = jax.random.fold_in(jax.random.PRNGKey(seed), 11)
     kt = TR.fold_in(TR.PRNGKey(seed), 11)
     bits = np.asarray(jax.random.bits(k, shape, jnp.uint32))
-    np.testing.assert_array_equal(TR.bits(kt, shape).numpy().view(np.uint32),
-                                  bits)
+    np.testing.assert_array_equal(
+        TR.bits(kt, shape, device="cpu").numpy().view(np.uint32), bits)
     u = np.asarray(jax.random.uniform(k, shape, jnp.float32, -0.5, 0.5))
     np.testing.assert_array_equal(
-        TR.uniform(kt, shape, -0.5, 0.5).numpy().view(np.uint32),
+        TR.uniform(kt, shape, -0.5, 0.5, device="cpu").numpy()
+        .view(np.uint32),
         u.view(np.uint32))
     u01 = np.asarray(jax.random.uniform(k, shape, jnp.float32))
-    np.testing.assert_array_equal(TR.uniform(kt, shape).numpy().view(np.uint32),
-                                  u01.view(np.uint32))
+    np.testing.assert_array_equal(
+        TR.uniform(kt, shape, device="cpu").numpy().view(np.uint32),
+        u01.view(np.uint32))
     r = np.asarray(jax.random.rademacher(k, shape, jnp.float32))
-    np.testing.assert_array_equal(TR.rademacher(kt, shape).numpy(), r)
+    np.testing.assert_array_equal(
+        TR.rademacher(kt, shape, device="cpu").numpy(), r)
 
 
 def test_chunked_draw_matches_one_shot(monkeypatch):
     """A draw split into many chunks is the same stream as one chunk."""
     kt = TR.fold_in(TR.PRNGKey(5), 2)
-    whole = TR.bits(kt, (3000,)).numpy()
+    whole = TR.bits(kt, (3000,), device="cpu").numpy()
     monkeypatch.setattr(TR, "_CHUNK", 128)
-    np.testing.assert_array_equal(TR.bits(kt, (3000,)).numpy(), whole)
+    np.testing.assert_array_equal(
+        TR.bits(kt, (3000,), device="cpu").numpy(), whole)
 
 
 @pytest.mark.parametrize("seed", [2 ** 31, 2 ** 32 - 1, 2 ** 32 + 5, -1])
