@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's aggregation round, quantized collectives,
-multi-round service, aggregation tree, continuous-round engine, flash
-attention and the paper's algorithms on one CUDA card.
+FSDP training, multi-round service, aggregation tree, continuous-round
+engine, flash attention and the paper's algorithms on one CUDA card.
 
     python3 chip_smoke.py [--seed N]   # d = 277,845,504; 16 clients; 4 ranks
 
@@ -42,7 +42,27 @@ nothing of the JAX package.  The script
    rotated); and a small world-4 star and butterfly (d = 2^18) give the
    same bits on the card as on the CPU.  A rank that fails, or has not
    finished within ``RANK_TIMEOUT_S``, fails the run;
-6. runs the anchored multi-round service (``agg.service``) lockstep for
+6. trains internvl2-1b at full width and depth (24 layers, d_model 896,
+   vocab 151,655, 256 stub image tokens; 629.6 M parameters) with the
+   port's ``Trainer``: four ranks, one process each on the one card, over
+   gloo; one ``train_4k`` sequence of 4,096 tokens per rank (the batch cut
+   from 256 to 4); ZeRO-3 with prefetched bf16 gathers and remat, the
+   gradient of every one of the 219 leaves reduce-scattered by packed
+   q = 16 recursive halving (bucket 4096, unrotated) through the encode
+   and single-decode kernels; AdamW at lr 3e-4, 3 steps, no restart
+   allowed, a checkpoint at the end.  Checks: a finite loss with the same
+   bits on every rank; no restart; the bytes each rank sends per step ==
+   ``wire_bytes_step``; one leaf-sync order on every rank; encode and
+   single-decode launches == syncs x hops; layer 0's ``wq`` gradient
+   shard within 0.51 s per quantization of the exact mean; a serial step
+   equal bit for bit to the prefetching run's first; a packed and an
+   unpacked step at 2 layers equal bit for bit; the FSDP backward at
+   d = 2^18 on the card == on the CPU.  Prints each step's wall, gather,
+   sync (and the embedding's and head's share), data and loss, each
+   rank's peak device memory; then holds the encode and single decode
+   against their plain versions at the path's largest hop (67,944,448
+   coordinates);
+7. runs the anchored multi-round service (``agg.service``) lockstep for
    three rounds at d = 277,845,504 (q = 16, bucket = 4096, y0 = 0.25),
    warm-started at ``base``; client i of round r sends
    ``base + 0.01 r drift + 0.02 N(0,1)``, made on the card from
@@ -53,7 +73,7 @@ nothing of the JAX package.  The script
    within 0.51 s of the exact mean per coordinate (s of its bucket), and
    that round r+1's spec digest is the digest of round r's mean; prints
    each round's wall time, the time spent in anchor digests and max(y);
-7. runs the sum-without-decode tree (``agg.tree``): 16 clients of round A
+8. runs the sum-without-decode tree (``agg.tree``): 16 clients of round A
    over 4 edge tiers into the root, at full width, unanchored.  Checks
    that the tiers dispatch no decode, that the root makes one batched
    decode per color space it receives, and that the mean equals a flat
@@ -61,19 +81,19 @@ nothing of the JAX package.  The script
    forwarded at and the peak device memory; when a tier forwarded at
    q = 256, holds the batched decode at 8-bit colors against its plain
    version on the first 2^24 coordinates;
-8. runs the continuous-round engine (``agg.engine``) through
+9. runs the continuous-round engine (``agg.engine``) through
    ``sim.run_open_loop`` at d = 2^22 (~80 Poisson clients, a flash crowd,
    churn, stragglers, 3% frame loss), every published round replayed
    bitwise through a lockstep server; then one trace at d = 2^18 through
    the engine and a 2-tier tree, once on the card and once on the CPU,
    bitwise equal;
-9. runs a small round (d = 2^18, 8 clients) once on the card and once on
+10. runs a small round (d = 2^18, 8 clients) once on the card and once on
    the CPU (plain versions) and requires bitwise equal means, and a
    chunked, windowed streaming round on the card that must equal the
    sealed drain bit for bit;
-10. times the round's costs outside the kernels at full width (the threefry
+11. times the round's costs outside the kernels at full width (the threefry
    draws, the anchor digest, one CRC-32 pass over a frame);
-11. runs attention through ``ops.flash_attention`` at three models' full
+12. runs attention through ``ops.flash_attention`` at three models' full
    widths: qwen3-32b prefill (64 query heads x head_dim 128, K/V expanded
    from its 8 KV heads, one sequence of ``prefill_32k``'s 32,768 tokens, the
    batch cut from 32 to 1; bf16, causal), nemotron-4-340b prefill (96 x
@@ -88,7 +108,7 @@ nothing of the JAX package.  The script
    ``scaled_dot_product_attention`` on the same tensors as the library call
    (used nowhere in the port), printing SDPA's own share of the kernel's
    limit against the plain version as information;
-12. runs the paper's algorithms (``repro_torch.core``) on the card: at
+13. runs the paper's algorithms (``repro_torch.core``) on the card: at
    d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
    of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
    butterfly and variance reduction, each checked for ``decode_ok`` and
@@ -98,12 +118,12 @@ nothing of the JAX package.  The script
    functions give the same bits on the card as on the CPU.  This phase
    launches none of the kernels (the rotations there are the plain
    transform), and checks that;
-13. prints the ``kernels`` line, then the ``ok`` line last.
+14. prints the ``kernels`` line, then the ``ok`` line last.
 
 Every count of kernel launches is set to 0 just before each main path
-(rounds A and B; each rank's collectives; the service, the tree and the
-engine phases; the bf16 and the f32 attention paths; the paper-algorithms
-phase) and read just after it; a kernel of a
+(rounds A and B; each rank's collectives; each rank's training run; the
+service, the tree and the engine phases; the bf16 and the f32 attention
+paths; the paper-algorithms phase) and read just after it; a kernel of a
 path that was not launched there fails the run, and the ``kernels`` line
 sums the counts of the paths over all ranks.  Any failed check raises before the
 last line is printed.  Without a CUDA device, or without the port beside
@@ -115,6 +135,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -133,6 +154,9 @@ CLIENTS = 16                     # clients per full-width round
 WORLD = 4                        # ranks of the collectives phase, one card
 RANK_TIMEOUT_S = 600             # a rank that takes longer fails the run
 SERVICE_ROUNDS = 3               # anchored rounds of the service phase
+TRAIN_STEPS = 3                  # steps of the training phase
+TRAIN_SEQ = 4096                 # train_4k's sequence (one per rank)
+TRAIN_HOP_N = 67_944_448         # the embedding's first RH hop (internvl2-1b)
 SERVICE_CLIENTS = 8              # clients per service round
 TREE_FANOUT = 4                  # edge tiers of the tree phase
 # the open-loop engine's traffic: 4096-coordinate buckets, ~80 clients
@@ -676,7 +700,7 @@ def rounds_ab(torch, d: int, n_clients: int, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: card vs CPU, and the streaming drain
+# Phase 10: card vs CPU, and the streaming drain
 # ---------------------------------------------------------------------------
 
 def small_rounds(torch, seed: int) -> None:
@@ -925,17 +949,21 @@ def collective_rank_main(torch, rank: int, world: int, seed: int) -> dict:
     return out
 
 
-def _collective_rank(rank: int, world: int, port: int, seed: int,
-                     queue) -> None:
-    """Entry point of one spawned rank: joins the gloo group, runs its
-    share, and puts ``(rank, "ok", result)`` or ``(rank, "error",
-    traceback)`` on the queue."""
+def _rank_entry(main, rank: int, world: int, port: int, args: tuple,
+                queue) -> None:
+    """Entry point of one spawned rank: joins the gloo group, runs
+    ``main(torch, rank, world, *args)``, and puts ``(rank, "ok", result)``
+    or ``(rank, "error", traceback)`` on the queue."""
     import datetime
     import os
     import traceback
 
     try:
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        # cuBLAS is deterministic only with a fixed workspace (set before
+        # the first CUDA call); the training phase's serial == prefetch
+        # check needs it
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         import torch
         import torch.distributed as dist
         torch.cuda.set_device(0)
@@ -943,7 +971,7 @@ def _collective_rank(rank: int, world: int, port: int, seed: int,
             "gloo", init_method=f"tcp://localhost:{port}", world_size=world,
             rank=rank, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
         try:
-            res = collective_rank_main(torch, rank, world, seed)
+            res = main(torch, rank, world, *args)
         finally:
             dist.destroy_process_group()
         queue.put((rank, "ok", res))
@@ -952,10 +980,11 @@ def _collective_rank(rank: int, world: int, port: int, seed: int,
         sys.exit(1)
 
 
-def collectives(seed: int) -> dict:
-    """Spawn ``WORLD`` ranks, one process each, on the one card; fail when a
-    rank fails, or when any has not finished within ``RANK_TIMEOUT_S``.
-    Returns the ranks' results in rank order."""
+def _spawn_ranks(main, args: tuple, what: str) -> list:
+    """Spawn ``WORLD`` ranks, one process each, on the one card, each
+    running ``main(torch, rank, WORLD, *args)``; fail when a rank fails, or
+    when any has not finished within ``RANK_TIMEOUT_S``.  Returns the
+    ranks' results in rank order."""
     import multiprocessing as mp
     import queue as queue_mod
     import socket
@@ -965,10 +994,9 @@ def collectives(seed: int) -> dict:
         port = sk.getsockname()[1]
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_collective_rank,
-                         args=(r, WORLD, port, seed, q),
-                         daemon=True) for r in range(WORLD)]
-    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(main, r, WORLD, port, args, q), daemon=True)
+             for r in range(WORLD)]
     for p in procs:
         p.start()
     results = {}
@@ -977,17 +1005,16 @@ def collectives(seed: int) -> dict:
         while len(results) < WORLD:
             missing = [r for r in range(WORLD) if r not in results]
             check(time.monotonic() < deadline,
-                  f"collectives: ranks {missing} did not finish within "
+                  f"{what}: ranks {missing} did not finish within "
                   f"{RANK_TIMEOUT_S} s")
             try:
                 rank, status, payload = q.get(timeout=5)
             except queue_mod.Empty:
                 dead = [r for r in missing if not procs[r].is_alive()]
-                check(not dead, f"collectives: ranks {dead} exited without "
+                check(not dead, f"{what}: ranks {dead} exited without "
                       f"a result")
                 continue
-            check(status == "ok", f"collectives: rank {rank} failed:\n"
-                  f"{payload}")
+            check(status == "ok", f"{what}: rank {rank} failed:\n{payload}")
             results[rank] = payload
         for p in procs:
             p.join(timeout=60)
@@ -999,7 +1026,15 @@ def collectives(seed: int) -> dict:
             if p.is_alive():
                 p.kill()
                 p.join()
-    ranks = [results[r] for r in range(WORLD)]
+    return [results[r] for r in range(WORLD)]
+
+
+def collectives(seed: int) -> dict:
+    """Spawn ``WORLD`` ranks, one process each, on the one card, for the
+    collectives phase; returns the kernels' launches summed over the
+    ranks."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(collective_rank_main, (seed,), "collectives")
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in COLLECTIVE_KERNELS}
     for name, n in launches.items():
@@ -1014,7 +1049,406 @@ def collectives(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 6-8: the multi-round service, the tree and the engine
+# Phase 6: FSDP training of internvl2-1b, four ranks on one card
+# ---------------------------------------------------------------------------
+
+def _bits_digest(torch, tree) -> "list[int]":
+    """Two exact integer sums over the bits of every tensor of a nested
+    dict (plain and index-weighted, leaves in sorted order): equal digests
+    for equal bits, and a changed bit changes them."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _bits_digest(torch, v)
+            continue
+        b = v.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(b.shape[0], device=b.device, dtype=torch.int64) % 65521
+        out += [int(b.sum()), int((b * (w + 1)).sum())]
+    return out
+
+
+def train_rank_main(torch, rank: int, world: int, seed: int,
+                    ckpt_dir: str) -> dict:
+    """One rank's share of the training phase; every check raises.
+
+    The main path: the port's ``Trainer`` (prefetching FSDP, remat, the
+    quantized gradient reduce-scatter) for TRAIN_STEPS steps of
+    internvl2-1b at full width and depth, from the seeded initial state,
+    with a checkpoint at the end.  Then: layer 0's ``wq`` gradient sync
+    of step 0 again on the CPU (bitwise), one serial and one
+    uninstrumented prefetching step from the same initial state (each
+    bitwise the main run's first step), one packed and one unpacked step
+    at 2 layers (bitwise the same), and one FSDP backward at d = 2^18 on
+    the card and on the CPU (bitwise)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import random as R
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_groups
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardCtx
+    from repro_torch.train import data as D
+    from repro_torch.train import optim as O
+    from repro_torch.train import trainer as TR
+
+    dev = torch.device("cuda")
+    torch.use_deterministic_algorithms(True)
+    groups = make_groups((world,))
+    cfg = registry.config("internvl2-1b")
+    qcfg = C.QSyncConfig(q=16, bucket=4096)
+    ctx = ShardCtx(dp=world, dp_axes=groups, qcfg=qcfg, grad_sync="lq",
+                   prefetch=True)
+    opt = O.OptConfig(lr=3e-4, warmup=1, decay_steps=TRAIN_STEPS)
+    data = D.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                        global_batch=world, seed=seed)
+    rows = (rank, rank + 1)
+
+    def extra(step):
+        return {"img": D.frames_at(data, step, cfg.img_tokens, cfg.d_model,
+                                   rows=rows, device=dev)}
+
+    tc = TR.TrainConfig(steps=TRAIN_STEPS, ckpt_every=10 ** 6,
+                        ckpt_dir=ckpt_dir, log_every=1, max_restarts=0)
+
+    # instrumentation: the forward gathers' and the gradient syncs' time
+    # (host clock, synchronized on both sides), the bytes every sync sends,
+    # and the order of the leaf syncs
+    acc = dict(gather_s=0.0, sync_s=0.0, sync_top_s=0.0, sent=0, order=[],
+               data_s=0.0)
+    issue, value, sync, ppermute = (F._issue, F._gather_value, F._sync_grad,
+                                    C._ppermute)
+    capture = {}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return r
+        return call
+
+    def sync_recorded(cfg_, g, y_entry, key, tele_like, anchor_full):
+        acc["order"].append(tuple(key))
+        before = acc["sync_s"]
+        r = timed(sync, "sync_s")(cfg_, g, y_entry, key, tele_like,
+                                  anchor_full)
+        if g.numel() >= TRAIN_HOP_N:          # the embedding and the head
+            acc["sync_top_s"] += acc["sync_s"] - before
+        if key == capture.get("key"):
+            capture.update(cfg=cfg_, g=g.reshape(-1).to(torch.float32).clone(),
+                           g_shard=r[0].clone(), tele=r[1].clone(),
+                           y=y_entry.clone(), anchor=anchor_full)
+        return r
+
+    def counted(t, *args, **kwargs):
+        acc["sent"] += t.numel() * t.element_size()
+        return ppermute(t, *args, **kwargs)
+
+    F._issue, F._gather_value = timed(issue, "gather_s"), \
+        timed(value, "gather_s")
+    F._sync_grad, C._ppermute = sync_recorded, counted
+
+    tr = TR.Trainer(cfg, ctx, opt, tc, data, extra_batch=extra, device=dev)
+    tr._batch = timed(tr._batch, "data_s")
+    state0 = tr._init()
+    # layer 0's wq at step 0: the key its sync is given
+    k0 = R.fold_in(R.fold_in(state0["key"], 0), 1)
+    capture["key"] = T._leaf_key(k0, "wq")
+    digest0 = None
+    steps = []
+    inner = tr.step_fn
+
+    def timed_step(state, batch):
+        nonlocal digest0
+        data_s = acc["data_s"]
+        acc.update(gather_s=0.0, sync_s=0.0, sync_top_s=0.0, sent=0,
+                   data_s=0.0)
+        n_sync = len(acc["order"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = inner(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps.append(dict(step=int(state["step"]), wall_s=wall,
+                          gather_s=acc["gather_s"], sync_s=acc["sync_s"],
+                          sync_top_s=acc["sync_top_s"], data_s=data_s,
+                          loss=float(metrics["loss"]),
+                          gnorm=float(metrics["gnorm"]),
+                          fails=float(metrics["fails"]),
+                          sent_bytes=acc["sent"],
+                          wire_mib=acc["sent"] / 2 ** 20,
+                          syncs=len(acc["order"]) - n_sync))
+        if state["step"] == 0:
+            digest0 = _bits_digest(torch, {"p": new["params"],
+                                           "y": new["y"]})
+        return new, metrics
+
+    tr.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    tr.train(state0)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = dict(_build.LAUNCHES)             # read just after the path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(rank=rank, steps=steps, path_seconds=path_s,
+               held_gb=held / 1e9, peak_gb=peak_gb, launches=launches,
+               restarts=tr.restarts,
+               wire_bytes_step=tr.wire_bytes_step)
+    del state0
+
+    # --- checks of the main path ---------------------------------------
+    check(tr.restarts == 0, f"rank {rank}: {tr.restarts} restarts")
+    check(len(steps) == TRAIN_STEPS, f"rank {rank}: {len(steps)} steps")
+    for st in steps:
+        check(math.isfinite(st["loss"]) and math.isfinite(st["gnorm"]),
+              f"rank {rank} step {st['step']}: loss {st['loss']}")
+        check(st["sent_bytes"] == tr.wire_bytes_step,
+              f"rank {rank} step {st['step']}: sent {st['sent_bytes']} B, "
+              f"wire_bytes_step is {tr.wire_bytes_step}")
+    n_leaves = sum(len(v) for v in tr.metas.values())
+    syncs = T.n_scan_steps(cfg) * len(tr.metas["layers"]) + \
+        len(tr.metas["top"])
+    hops = world.bit_length() - 1
+    check(all(st["syncs"] == syncs for st in steps),
+          f"rank {rank}: {[st['syncs'] for st in steps]} leaf syncs a step, "
+          f"expected {syncs}")
+    for k in ("lattice_encode", "lattice_decode"):
+        check(launches[k] == TRAIN_STEPS * syncs * hops,
+              f"rank {rank}: {launches[k]} {k} launches, expected "
+              f"{TRAIN_STEPS} x {syncs} x {hops}")
+    out["expected_launches"] = TRAIN_STEPS * syncs * hops
+    out["leaves"] = n_leaves
+    losses = _gather_floats(torch, [st["loss"] for st in steps])
+    check(all(ls == losses[0] for ls in losses),
+          f"the loss differs across ranks: {losses}")
+    order = [float(hash(tuple(acc["order"])) % (1 << 52))]
+    orders = _gather_floats(torch, order)
+    check(all(o == orders[0] for o in orders),
+          "the ranks issued their leaf syncs in different orders")
+
+    F._issue, F._gather_value, F._sync_grad, C._ppermute = (
+        issue, value, sync, ppermute)
+
+    # layer 0's wq gradient sync at step 0, run again on the CPU over the
+    # same gloo group from the same cotangent, y and key: the card's shard
+    # and telemetry row bit for bit (the CPU port is held bitwise to the
+    # JAX package by tests/test_torch_fsdp.py)
+    def cpu(t):
+        return None if t is None else t.cpu()
+    g_cpu, tele_cpu = sync(capture["cfg"], cpu(capture["g"]),
+                           cpu(capture["y"]), capture["key"],
+                           torch.zeros_like(cpu(capture["tele"])),
+                           cpu(capture["anchor"]))
+    check(torch.equal(g_cpu.view(torch.int32),
+                      cpu(capture["g_shard"]).view(torch.int32))
+          and torch.equal(tele_cpu.view(torch.int32),
+                          cpu(capture["tele"]).view(torch.int32)),
+          f"rank {rank}: layer 0's wq gradient sync on the card differs "
+          f"from the same sync on the CPU")
+    out["wq_sync_card_equals_cpu"] = True
+
+    # the same shard against the exact f32 mean of the four ranks'
+    # gradients: 0.51 s per quantization per coordinate
+    g_full, g_shard = capture["g"], capture["g_shard"]
+    seg = g_shard.shape[0]
+    parts = F._gather_tiled(g_full, [None]).reshape(world, -1)
+    exact = parts.to(torch.float64).mean(dim=0)[rank * seg:(rank + 1) * seg]
+    b_eff = F._effective_bucket(qcfg, g_full.shape[0], world)
+    s_b = (2 * capture["y"] / (qcfg.q - 1))[rank * seg // b_eff:
+                                           (rank + 1) * seg // b_eff]
+    err = (g_shard.to(torch.float64) - exact).abs().reshape(-1, b_eff)
+    lim = 0.51 * s_b.to(torch.float64)[:, None] * hops
+    check(bool((err <= lim).all()),
+          f"rank {rank}: layer 0 wq gradient off the exact mean by "
+          f"{float(err.max())} (limit {float(lim.min())})")
+    out["wq_grad"] = dict(max_abs_err=float(err.max()),
+                          limit=float(lim.min()),
+                          exact_max_abs=float(exact.abs().max()))
+    del parts, exact, capture["g"]
+    torch.cuda.empty_cache()
+
+    # --- serial == prefetch: one serial step from the same initial state
+    ser = dataclasses.replace(ctx, prefetch=False)
+    st_s = TR.init_state(cfg, ser, opt, tc, R.PRNGKey(0), dp_rank=rank,
+                         device=dev)
+    b0 = tr._batch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_s, m_s = TR.make_train_step(cfg, ser, opt, tc, dev)(st_s, b0)
+    torch.cuda.synchronize()
+    out["serial_step_s"] = time.perf_counter() - t0
+    dig_s = _bits_digest(torch, {"p": new_s["params"], "y": new_s["y"]})
+    check(dig_s == digest0 and float(m_s["loss"]) == steps[0]["loss"],
+          f"rank {rank}: the serial step differs from the prefetching one")
+    out["serial_equals_prefetch"] = True
+    del st_s, new_s
+    torch.cuda.empty_cache()
+
+    # --- one prefetching step without the instrumentation (which
+    # synchronizes around every gather and sync), timed beside the serial
+    # one: the pair that says how much prefetch overlaps
+    st_p = TR.init_state(cfg, ctx, opt, tc, R.PRNGKey(0), dp_rank=rank,
+                         device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_p, m_p = TR.make_train_step(cfg, ctx, opt, tc, dev)(st_p, b0)
+    torch.cuda.synchronize()
+    out["prefetch_step_s"] = time.perf_counter() - t0
+    dig_p = _bits_digest(torch, {"p": new_p["params"], "y": new_p["y"]})
+    check(dig_p == digest0 and float(m_p["loss"]) == steps[0]["loss"],
+          f"rank {rank}: the uninstrumented prefetching step differs from "
+          f"the instrumented one")
+    del st_p, new_p, b0
+    torch.cuda.empty_cache()
+
+    # --- packed == unpacked telemetry, one step at 2 layers, full width
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    digs = []
+    for packed in (True, False):
+        c2 = dataclasses.replace(
+            ctx, qcfg=dataclasses.replace(qcfg, packed=packed))
+        st2 = TR.init_state(cfg2, c2, opt, tc, R.PRNGKey(0), dp_rank=rank,
+                            device=dev)
+        b2 = D.local_batch_at(data, 0, rank, world, device=dev)
+        b2.update(extra(0))
+        new2, m2 = TR.make_train_step(cfg2, c2, opt, tc, dev)(st2, b2)
+        digs.append(_bits_digest(torch, {"p": new2["params"],
+                                         "y": new2["y"]})
+                    + [float(m2["loss"]), float(m2["fails"])])
+        del st2, new2, b2
+        torch.cuda.empty_cache()
+    check(digs[0] == digs[1],
+          f"rank {rank}: packed and unpacked telemetry steps differ")
+    out["packed_equals_unpacked"] = True
+
+    # --- card == CPU: the FSDP backward at d = 2^18, world 4, bitwise
+    d2 = 1 << 18
+    rng = np.random.RandomState(seed + 5 + rank)
+    w2 = rng.randn(d2 // world).astype(np.float32)
+    ct2 = rng.randn(d2).astype(np.float32)
+    fcfg = F.FSDPConfig(axes=groups, qcfg=qcfg)
+    nb2 = F.leaf_nb(d2, world, qcfg)
+    res = []
+    for dv in (dev, torch.device("cpu")):
+        wt = torch.from_numpy(w2).to(dv).requires_grad_()
+        tele = torch.zeros(F.tele_width(nb2), device=dv, requires_grad=True)
+        full = F.make_fsdp_gather(fcfg)(
+            {"w": wt, "y": torch.full((nb2,), 0.5, device=dv),
+             "key": R.PRNGKey(seed + 3), "tele": tele})
+        full.backward(torch.from_numpy(ct2).to(dv).to(full.dtype))
+        res.append((wt.grad.cpu().view(torch.int32),
+                    tele.grad.cpu().view(torch.int32)))
+    check(torch.equal(res[0][0], res[1][0])
+          and torch.equal(res[0][1], res[1][1]),
+          f"rank {rank}: the FSDP backward on the card differs from the CPU")
+    out["small_card_equals_cpu"] = True
+    return out
+
+
+def train_kernel_checks(torch, seed: int) -> None:
+    """The encode and the single decode at the training path's largest
+    shape, the embedding's first recursive-halving hop (67,944,448
+    coordinates, q = 16, per-bucket sides, coords mode): bitwise against
+    their plain versions on the first 2^24 coordinates, timed at the full
+    shape."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    n, bucket, q, bits = TRAIN_HOP_N, 4096, 16, 4
+    nb = n // bucket
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    x = torch.randn(n, generator=g, device=dev) * 1e-3
+    u = torch.rand(n, generator=g, device=dev) - 0.5
+    sides = (2.0 / 15) * (0.5 + torch.rand(nb, generator=g, device=dev))
+    L_ = min(SLICE, n)
+    words = ops.lattice_encode(x, u, sides, q=q, bucket=bucket)
+    torch.cuda.synchronize()
+    want = ref.lattice_encode_ref(x[:L_], u[:L_], sides[:L_ // bucket], q=q,
+                                  bits=bits, bucket=bucket)
+    check(torch.equal(words[:L_ // 8], want),
+          "lattice_encode disagrees with its plain version at the training "
+          "hop's shape")
+    ms_e = cuda_ms(torch, lambda: ops.lattice_encode(x, u, sides, q=q,
+                                                     bucket=bucket))
+    y = x + 0.01 * torch.randn(n, generator=g, device=dev) * 1e-3
+    k = ops.lattice_decode(words, y, u, sides, q=q, mode="coords",
+                           bucket=bucket)
+    torch.cuda.synchronize()
+    want_k = ref.lattice_decode_ref(words[:L_ // 8], y[:L_], u[:L_],
+                                    sides[:L_ // bucket], q=q, bits=bits,
+                                    n=L_, mode="coords", bucket=bucket)
+    check(torch.equal(k[:L_], want_k),
+          "lattice_decode disagrees with its plain version at the training "
+          "hop's shape")
+    ms_d = cuda_ms(torch, lambda: ops.lattice_decode(
+        words, y, u, sides, q=q, mode="coords", bucket=bucket))
+    be, bye = bound(n * (4 + 4 + bits / 8) + nb * 4, n * 4)
+    bd, byd = bound(n * (bits / 8 + 4 + 4 + 4) + nb * 4, n * 4)
+    say("kernel_check_train", shape=f"N={n}, q={q}, per-bucket sides",
+        lattice_encode=dict(ms=ms_e, bound_ms=be, bound_by=bye,
+                            max_abs_err=0.0),
+        lattice_decode=dict(ms=ms_d, bound_ms=bd, bound_by=byd,
+                            max_abs_err=0.0))
+    del x, u, y, words, k
+    torch.cuda.empty_cache()
+
+
+def train_internvl2(seed: int) -> dict:
+    """The training phase: four ranks on the one card over gloo, the port's
+    Trainer at internvl2-1b's full width and depth; returns the encode and
+    single-decode launches of the main path, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_ranks(train_rank_main, (seed, ckpt_dir),
+                             "train_internvl2")
+        saved = sorted(p.name for p in Path(ckpt_dir).iterdir())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(saved == [f"step_{TRAIN_STEPS:08d}"],
+          f"train_internvl2: the checkpoint directory holds {saved}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in COLLECTIVE_KERNELS}
+    for name in ("lattice_encode", "lattice_decode"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the training phase")
+    for st in range(TRAIN_STEPS):
+        say("train_step", step=st,
+            ranks=[{k: r["steps"][st][k] for k in
+                    ("wall_s", "gather_s", "sync_s", "sync_top_s", "data_s",
+                     "loss", "gnorm", "fails", "wire_mib")}
+                   for r in ranks])
+    say("train_internvl2", world=WORLD, arch="internvl2-1b", layers=24,
+        seq=TRAIN_SEQ, image_tokens=256, global_batch=WORLD,
+        steps=TRAIN_STEPS, wall_s=time.perf_counter() - t0,
+        checkpoint=saved, launches=launches,
+        ranks=[{k: r[k] for k in ("rank", "path_seconds", "held_gb",
+                                  "peak_gb", "restarts", "wire_bytes_step",
+                                  "expected_launches", "leaves", "wq_grad",
+                                  "wq_sync_card_equals_cpu", "serial_step_s",
+                                  "prefetch_step_s", "serial_equals_prefetch",
+                                  "packed_equals_unpacked",
+                                  "small_card_equals_cpu")} for r in ranks])
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-9: the multi-round service, the tree and the engine
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1426,7 +1860,7 @@ def host_costs(torch, d: int, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: attention at full width
+# Phase 12: attention at full width
 # ---------------------------------------------------------------------------
 
 def attention_inputs(torch, heads: int, kv_heads: int, hd: int, seq: int,
@@ -1556,7 +1990,7 @@ def attention(torch, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the paper's algorithms
+# Phase 13: the paper's algorithms
 # ---------------------------------------------------------------------------
 
 def _timed(torch, fn):
@@ -1746,6 +2180,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     coll = collectives(args.seed)
     counts = {k: counts[k] + coll[k] for k in COLLECTIVE_KERNELS}
+    train = train_internvl2(args.seed)
+    counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
+    train_kernel_checks(torch, args.seed)
     for phase in (agg_service, agg_tree, agg_engine_small):
         got = phase(torch, args.seed)
         counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}

@@ -5,7 +5,8 @@ The port never imports the reference.  A caller that holds a reference
 included) to :func:`round_spec`, a reference ``QState``'s arrays to
 :func:`qstate_from_numpy`, and numpy arrays (an anchor, a client vector)
 to :func:`tensor`; both sides of a comparison are then built from the same
-numbers.
+numbers.  :func:`train_state_from_numpy` carries a reference training
+state (its global storage arrays) across as one rank's slices.
 """
 from __future__ import annotations
 
@@ -44,3 +45,40 @@ def qstate_from_numpy(y, anchor=None, device=None) -> QState:
     dev = resolve_device(device)
     return QState(y=tensor(y, dev),
                   anchor=None if anchor is None else tensor(anchor, dev))
+
+
+def _rank_slice(a, dp_rank: int, dev) -> torch.Tensor:
+    """(L?, tp, dp, shard) global storage -> (L?, 1, 1, shard) of one rank
+    (tp = 1)."""
+    a = np.asarray(a)
+    return tensor(a[..., dp_rank:dp_rank + 1, :], dev)
+
+
+def train_state_from_numpy(state_np: dict, cfg, ctx, rank: int,
+                           device=None) -> dict:
+    """A reference training state, as numpy arrays — params and optimizer
+    moments as global storage arrays ``(L?, tp, dp, shard)``, the ``y``
+    tree (sharded anchors global too), ``step`` and ``key`` — as DP rank
+    ``rank``'s state in the port: ``(L?, 1, 1, shard)`` slices on
+    ``device`` (the CUDA device unless another is named)."""
+    dev = resolve_device(device)
+
+    def tree(t):
+        return {grp: {k: _rank_slice(v, rank, dev) for k, v in t[grp].items()}
+                for grp in ("layers", "top")}
+
+    def y_leaf(v):
+        if isinstance(v, dict):
+            a = np.asarray(v["anchor"])
+            if ctx.anchor_sharded:
+                a = a[..., rank:rank + 1, :]
+            return {"y": tensor(v["y"], dev), "anchor": tensor(a, dev)}
+        return tensor(v, dev)
+
+    key = np.asarray(state_np["key"]).astype(np.uint32).reshape(-1)
+    return {"params": tree(state_np["params"]),
+            "opt": {k: tree(v) for k, v in state_np["opt"].items()},
+            "y": {grp: {k: y_leaf(v) for k, v in state_np["y"][grp].items()}
+                  for grp in ("layers", "top")},
+            "step": int(np.asarray(state_np["step"])),
+            "key": (int(key[0]), int(key[1]))}

@@ -1,0 +1,64 @@
+"""DP process groups; counterpart of ``repro.launch.mesh``.
+
+Where the reference builds a ``jax`` mesh, the port starts a
+``torch.distributed`` group per process and builds the DP groups from it.
+Nothing here runs when the module is imported.
+"""
+from __future__ import annotations
+
+import datetime
+import math
+
+import torch
+import torch.distributed as dist
+
+
+def backend_for(world: int, device: str = "cuda") -> str:
+    """gloo when ranks share a card (NCCL refuses that) or run on the CPU;
+    NCCL with one rank per card."""
+    if device == "cpu" or world > torch.cuda.device_count():
+        return "gloo"
+    return "nccl"
+
+
+def init_process(rank: int, world: int, addr: str, *, device: str = "cuda",
+                 timeout_s: float = 600.0) -> str:
+    """Join the default group at ``addr`` (``tcp://host:port``); returns
+    the backend.  With one rank per card, rank r uses card r; when ranks
+    share, every rank uses card 0."""
+    backend = backend_for(world, device)
+    if device != "cpu":
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=addr, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return backend
+
+
+def make_groups(shape: "tuple[int, ...]") -> tuple:
+    """The DP process groups of a ``shape = (outer, ..., inner)`` layout of
+    the default group's ranks (rank = (outer, ..., inner)-major index),
+    outermost first, as ``ShardCtx.dp_axes`` takes them.  A single axis is
+    the default group itself.  Every rank must call this, in the same
+    order, with the same shape."""
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"layout {shape} needs {math.prod(shape)} ranks, "
+                         f"the group has {world}")
+    if len(shape) == 1:
+        return (None,)
+    rank = dist.get_rank()
+    groups = []
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    for ax, (n, stride) in enumerate(zip(shape, strides)):
+        mine = None
+        # one group per combination of the other axes' indices
+        for base in range(world):
+            if (base // stride) % n:
+                continue                  # not the axis-0 member
+            members = [base + j * stride for j in range(n)]
+            g = dist.new_group(members)
+            if rank in members:
+                mine = g
+        groups.append(mine)
+    return tuple(groups)

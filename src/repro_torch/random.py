@@ -16,7 +16,18 @@ This module reproduces exactly the calls the protocol makes, in JAX's
   them (mantissa fill, then shift and scale);
 * ``randint``, ``permutation`` and ``normal`` as ``jax.random`` builds
   them from ``split`` and ``bits`` (``normal`` only to ``allclose``: torch's
-  ``erfinv`` is not XLA's).
+  ``erfinv`` is not XLA's);
+* ``bernoulli`` (``uniform < p``), ``gumbel`` (``-log(-log(uniform(tiny,
+  1)))``) and ``categorical`` (the argmax of ``gumbel + logits``) as
+  ``jax.random`` builds them; the two logs are torch's, which may differ
+  from XLA's in the last bit, so an argmax can flip where two categories
+  tie to within an ulp.
+
+Element ``i`` of a draw depends on ``i`` alone, so a caller that needs only
+part of a draw names it: ``span=(start, stop)`` returns elements
+``start .. stop - 1`` of the flattened row-major draw of ``shape`` (as a
+flat tensor), and ``rows=(r0, r1)`` returns rows ``r0 .. r1 - 1`` of the
+leading axis; either is bitwise the same slice of the whole draw.
 
 A key is a pair of Python ints.  Bulk draws run on the device the caller
 names — the CUDA device unless it names another (``device="cpu"``); with
@@ -95,20 +106,43 @@ def _shape(shape: Shape) -> "tuple[int, ...]":
     return (int(shape),) if isinstance(shape, int) else tuple(map(int, shape))
 
 
-def _draw(key: Key, shape: Shape, device, dtype, fn) -> torch.Tensor:
-    """Run ``fn`` over the int64 uint32 bits of a row-major draw, chunk by
-    chunk, into an output of ``dtype``."""
-    shape = _shape(shape)
+def _span(shape: "tuple[int, ...]", span=None, rows=None
+          ) -> "tuple[int, int, tuple[int, ...]]":
+    """(start, stop, output shape) of the part of a draw a caller asked
+    for: all of it, a flat element ``span``, or a ``rows`` range of the
+    leading axis."""
     n = math.prod(shape)
     if n >= (1 << 32):
         raise ValueError(f"draw of {n} elements exceeds 2^32")
-    out = torch.empty(n, dtype=dtype, device=device)
-    for c0 in range(0, n, _CHUNK):
-        c1 = min(n, c0 + _CHUNK)
+    if span is not None and rows is not None:
+        raise ValueError("pass span or rows, not both")
+    if rows is not None:
+        r0, r1 = (int(v) for v in rows)
+        if not 0 <= r0 <= r1 <= shape[0]:
+            raise ValueError(f"rows {rows} outside 0..{shape[0]}")
+        row = math.prod(shape[1:])
+        return r0 * row, r1 * row, (r1 - r0,) + tuple(shape[1:])
+    if span is not None:
+        c0, c1 = (int(v) for v in span)
+        if not 0 <= c0 <= c1 <= n:
+            raise ValueError(f"span {span} outside 0..{n}")
+        return c0, c1, (c1 - c0,)
+    return 0, n, shape
+
+
+def _draw(key: Key, shape: Shape, device, dtype, fn, span=None,
+          rows=None) -> torch.Tensor:
+    """Run ``fn`` over the int64 uint32 bits of a row-major draw, chunk by
+    chunk, into an output of ``dtype``; only the part named by ``span`` or
+    ``rows`` (see the module docstring) is drawn."""
+    start, stop, out_shape = _span(_shape(shape), span, rows)
+    out = torch.empty(stop - start, dtype=dtype, device=device)
+    for c0 in range(start, stop, _CHUNK):
+        c1 = min(stop, c0 + _CHUNK)
         lo = torch.arange(c0, c1, dtype=torch.int64, device=device)
         y0, y1 = _threefry2x32(key, torch.zeros_like(lo), lo)
-        out[c0:c1] = fn(y0 ^ y1)
-    return out.reshape(shape)
+        out[c0 - start:c1 - start] = fn(y0 ^ y1)
+    return out.reshape(out_shape)
 
 
 def as_int32_bits(v: torch.Tensor) -> torch.Tensor:
@@ -116,10 +150,11 @@ def as_int32_bits(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
 
 
-def bits(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
+def bits(key: Key, shape: Shape, *, device=None, span=None,
+         rows=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int32 bit view."""
     return _draw(key, shape, resolve_device(device), torch.int32,
-                 as_int32_bits)
+                 as_int32_bits, span, rows)
 
 
 def _unit_floats(v: torch.Tensor) -> torch.Tensor:
@@ -130,16 +165,16 @@ def _unit_floats(v: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: Key, shape: Shape, minval: float = 0.0, maxval: float = 1.0,
-            *, device=None) -> torch.Tensor:
+            *, device=None, span=None, rows=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
     device = resolve_device(device)
     lo = torch.tensor(minval, dtype=torch.float32)
-    span = torch.tensor(maxval, dtype=torch.float32) - lo
-    lo_d, span_d = lo.to(device), span.to(device)
+    width = torch.tensor(maxval, dtype=torch.float32) - lo
+    lo_d, span_d = lo.to(device), width.to(device)
 
     def fn(v):
         return torch.maximum(_unit_floats(v) * span_d + lo_d, lo_d)
-    return _draw(key, shape, device, torch.float32, fn)
+    return _draw(key, shape, device, torch.float32, fn, span, rows)
 
 
 def rademacher(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
@@ -151,7 +186,7 @@ def rademacher(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
 
 
 def randint(key: Key, shape: Shape, minval: int, maxval: int, *,
-            device=None) -> torch.Tensor:
+            device=None, span=None, rows=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32).
 
     jax's algorithm: two 32-bit draws from ``split(key)``, combined as
@@ -160,13 +195,15 @@ def randint(key: Key, shape: Shape, minval: int, maxval: int, *,
     ``minval``."""
     device = resolve_device(device)
     minval, maxval = int(minval), int(maxval)
-    span = maxval - minval if maxval > minval else 1
+    width = maxval - minval if maxval > minval else 1
     k1, k2 = split(key)
-    hi = bits(k1, shape, device=device).to(torch.int64) & _M32
-    lo = bits(k2, shape, device=device).to(torch.int64) & _M32
-    mult = (((1 << 16) % span) ** 2 & _M32) % span
-    off = (((hi % span) * mult) & _M32) + lo % span
-    return ((off & _M32) % span + minval).to(torch.int32)
+    hi = bits(k1, shape, device=device, span=span,
+              rows=rows).to(torch.int64) & _M32
+    lo = bits(k2, shape, device=device, span=span,
+              rows=rows).to(torch.int64) & _M32
+    mult = (((1 << 16) % width) ** 2 & _M32) % width
+    off = (((hi % width) * mult) & _M32) + lo % width
+    return ((off & _M32) % width + minval).to(torch.int32)
 
 
 def permutation(key: Key, n: int, *, device=None) -> torch.Tensor:
@@ -185,14 +222,59 @@ def permutation(key: Key, n: int, *, device=None) -> torch.Tensor:
     return x
 
 
-def normal(key: Key, shape: Shape, *, device=None) -> torch.Tensor:
+def normal(key: Key, shape: Shape, *, device=None, span=None,
+           rows=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``:
     ``sqrt(2) * erfinv(uniform(key, shape, nextafter(-1, 0), 1))``.  The
     uniform draw is bitwise; torch's ``erfinv`` differs from XLA's
     ``erf_inv`` in the last bits."""
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(key, shape, lo, 1.0, device=device)
+    u = uniform(key, shape, lo, 1.0, device=device, span=span, rows=rows)
     # jax multiplies by sqrt(2) rounded to f32; torch would keep a Python
     # float's double value in the product
     return torch.erfinv(u) * float(torch.tensor(math.sqrt(2),
                                                 dtype=torch.float32))
+
+
+def bernoulli(key: Key, p: float, shape: Shape, *, device=None, span=None,
+              rows=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` in f32."""
+    p32 = torch.tensor(p, dtype=torch.float32)
+    return uniform(key, shape, device=device, span=span,
+                   rows=rows) < p32.to(resolve_device(device))
+
+
+def gumbel(key: Key, shape: Shape, *, device=None, span=None,
+           rows=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)``:
+    ``-log(-log(uniform(key, shape, tiny, 1)))``."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    u = uniform(key, shape, tiny, 1.0, device=device, span=span, rows=rows)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: Key, logits: torch.Tensor, shape: Shape, *,
+                device=None, rows=None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` for 1-D
+    ``logits`` (V,): the argmax over V of ``gumbel(key, shape + (V,)) +
+    logits`` (int32, first index on ties).
+
+    The (shape, V) gumbel draw is made in chunks of whole V-rows, so its
+    memory stays near ``_CHUNK`` elements whatever the shape; ``rows``
+    draws only rows ``r0 .. r1 - 1`` of ``shape``'s leading axis."""
+    device = resolve_device(device)
+    shape = _shape(shape)
+    V = int(logits.shape[-1])
+    full = shape + (V,)
+    start, stop, _ = _span(full, None, rows)
+    out_shape = shape if rows is None else (rows[1] - rows[0],) + shape[1:]
+    lg = logits.to(device=device, dtype=torch.float32)
+    per = max(1, _CHUNK // V)                 # V-rows per chunk
+    n_rows = (stop - start) // V
+    out = torch.empty(n_rows, dtype=torch.int32, device=device)
+    for r0 in range(0, n_rows, per):
+        r1 = min(n_rows, r0 + per)
+        g = gumbel(key, full, device=device,
+                   span=(start + r0 * V, start + r1 * V)).reshape(r1 - r0, V)
+        out[r0:r1] = torch.argmax(g + lg, dim=-1).to(torch.int32)
+    return out.reshape(out_shape)

@@ -283,7 +283,15 @@ def test_port_imports_no_jax_and_no_reference():
     code = ("import sys, repro_torch.agg.server, repro_torch.agg.client, "
             "repro_torch.agg.service, repro_torch.agg.engine, "
             "repro_torch.agg.tree, repro_torch.agg.sim, repro_torch.agg, "
-            "repro_torch.dist, repro_torch.convert, repro_torch.kernels.ops; "
+            "repro_torch.dist, repro_torch.convert, repro_torch.kernels.ops, "
+            "repro_torch.dist.fsdp, repro_torch.models.config, "
+            "repro_torch.models.sharding, repro_torch.models.layers, "
+            "repro_torch.models.transformer, repro_torch.train.optim, "
+            "repro_torch.train.data, repro_torch.train.checkpoint, "
+            "repro_torch.train.trainer, repro_torch.launch.mesh, "
+            "repro_torch.launch.train, repro_torch.configs.registry; "
+            "from repro_torch.configs import registry; "
+            "[registry.config(a) for a in registry.ARCHS]; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; "

@@ -370,3 +370,68 @@ def test_service_tree_and_engine_on_card_bitwise_equal_cpu(cuda):
     assert len(out["cuda"]) == len(out["cpu"]) >= 4
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_fsdp_train_step_on_card(cuda):
+    """internvl2-smoke on a one-rank NCCL group, unrotated and rotated: a
+    train step on the card gives a finite loss and no decode failures, and
+    the FSDP backward of every leaf length the model has, given one seeded
+    cotangent, equals the CPU port's (over a gloo group) bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch import random as TR
+    from repro_torch.configs import registry
+    from repro_torch.dist import fsdp as TF
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.sharding import ShardCtx, leaf_gathered_len
+    from repro_torch.train import data as TD
+    from repro_torch.train import optim as TO
+    from repro_torch.train import trainer as TTr
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        cfg = registry.smoke_config("internvl2-1b")
+        for rotate in (False, True):
+            qc = QSyncConfig(q=16, bucket=64, rotate=rotate)
+            ctx = ShardCtx(dp=1, qcfg=qc)
+            tc = TTr.TrainConfig()
+            step = TTr.make_train_step(cfg, ctx, TO.OptConfig(), tc, cuda)
+            state = TTr.init_state(cfg, ctx, TO.OptConfig(), tc,
+                                   TR.PRNGKey(0), dp_rank=0, device=cuda)
+            data = TD.DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2)
+            batch = TD.batch_at(data, 0, device=cuda)
+            batch["img"] = TD.frames_at(data, 0, cfg.img_tokens, cfg.d_model,
+                                        device=cuda)
+            _, metrics = step(state, batch)
+            assert np.isfinite(float(metrics["loss"]))
+            assert float(metrics["fails"]) == 0
+            metas = TT.all_metas(cfg, ctx)
+            lengths = sorted({leaf_gathered_len(m, ctx)
+                              for g in metas.values() for m in g.values()})
+            for m in lengths:
+                rng = np.random.RandomState(m)
+                w = rng.randn(m).astype(np.float32)
+                ct = rng.randn(m).astype(np.float32)
+                nb = TF.leaf_nb(m, 1, qc)
+                outs = []
+                for dev, group in ((cuda, None), ("cpu", gloo)):
+                    fcfg = TF.FSDPConfig(axes=(group,), qcfg=qc)
+                    wt = _t(w, dev).requires_grad_()
+                    tele = torch.zeros(TF.tele_width(nb), device=dev,
+                                       requires_grad=True)
+                    full = TF.make_fsdp_gather(fcfg)(
+                        {"w": wt, "y": torch.full((nb,), 0.5, device=dev),
+                         "key": TR.PRNGKey(m), "tele": tele})
+                    full.backward(_t(ct, dev).to(full.dtype))
+                    outs.append((wt.grad.cpu().numpy(),
+                                 tele.grad.cpu().numpy()))
+                np.testing.assert_array_equal(outs[0][0], outs[1][0])
+                np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    finally:
+        dist.destroy_process_group()
