@@ -62,6 +62,24 @@ nothing of the JAX package.  The script
    rank's peak device memory; then holds the encode and single decode
    against their plain versions at the path's largest hop (67,944,448
    coordinates);
+6b. trains internvl2-1b at full width and depth again, as a (dp 2, tp 2)
+   mesh of the four ranks (``launch/mesh.mesh_axes``): sequence parallel
+   (2,176 of the 4,352 tokens per TP rank), one 4,096-token sequence per
+   DP rank shared by its two TP ranks (the global batch cut from 256 to
+   2), the 97 replicated leaves' gradients (``wk``, ``wv``, the norms)
+   psummed over TP through the quantized butterfly before the DP
+   reduce-scatter, otherwise as phase 6.  Checks: a finite loss with the
+   same bits on every rank; the replicated leaves bitwise equal on the two
+   TP ranks of a DP group after every step; the bytes the DP syncs and the
+   TP psums send == their wire accounting; encode and single-decode
+   launches == DP syncs x hops + TP butterflies x rounds; layer 0's
+   ``wk`` TP psum of step 0 again on the CPU over the same gloo group,
+   bitwise; the checkpoint read back equal to the final parameters bit for
+   bit; a serial step equal to the prefetching run's first.  Prints each
+   step's wall, gather, DP sync, TP sync, SP activation, data, loss, peak
+   memory and bytes per rank; then holds the encode and single decode
+   against their plain versions at the phase's largest DP hop
+   (33,972,224 coordinates) and at a butterfly's shapes;
 7. runs the anchored multi-round service (``agg.service``) lockstep for
    three rounds at d = 277,845,504 (q = 16, bucket = 4096, y0 = 0.25),
    warm-started at ``base``; client i of round r sends
@@ -121,7 +139,7 @@ nothing of the JAX package.  The script
 14. prints the ``kernels`` line, then the ``ok`` line last.
 
 Every count of kernel launches is set to 0 just before each main path
-(rounds A and B; each rank's collectives; each rank's training run; the
+(rounds A and B; each rank's collectives; each rank's training runs; the
 service, the tree and the engine phases; the bf16 and the f32 attention
 paths; the paper-algorithms phase) and read just after it; a kernel of a
 path that was not launched there fails the run, and the ``kernels`` line
@@ -157,6 +175,9 @@ SERVICE_ROUNDS = 3               # anchored rounds of the service phase
 TRAIN_STEPS = 3                  # steps of the training phase
 TRAIN_SEQ = 4096                 # train_4k's sequence (one per rank)
 TRAIN_HOP_N = 67_944_448         # the embedding's first RH hop (internvl2-1b)
+TP_MESH = (2, 2)                 # (dp, tp) of the TP phase, one card
+TRAIN_TP_STEPS = 3               # steps of the TP phase
+TP_HOP_N = 33_972_224            # the TP phase's largest DP hop (embedding)
 SERVICE_CLIENTS = 8              # clients per service round
 TREE_FANOUT = 4                  # edge tiers of the tree phase
 # the open-loop engine's traffic: 4096-coordinate buckets, ~80 clients
@@ -1448,6 +1469,418 @@ def train_internvl2(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: tensor and sequence parallelism, a (dp 2, tp 2) mesh on one card
+# ---------------------------------------------------------------------------
+
+class _Regions:
+    """Host-clock timers of nested code regions: the outermost timed call
+    owns the time (a TP psum's own pmax counts as the psum's), and the
+    bytes each ``ppermute`` or ``all_gather`` sends are booked to the
+    innermost open region."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.stack = []
+        self.s, self.sent = {}, {}
+
+    def reset(self):
+        self.s, self.sent = {}, {}
+
+    def timed(self, fn, key):
+        def call(*args, **kwargs):
+            outer = not self.stack
+            if outer:
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            self.stack.append(key)
+            try:
+                r = fn(*args, **kwargs)
+            finally:
+                self.stack.pop()
+            if outer:
+                self.torch.cuda.synchronize()
+                self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+            return r
+        return call
+
+    def counted(self, fn):
+        def call(t, *args, **kwargs):
+            key = self.stack[-1] if self.stack else "other"
+            self.sent[key] = self.sent.get(key, 0) + t.numel() * \
+                t.element_size()
+            return fn(t, *args, **kwargs)
+        return call
+
+
+def train_tp_rank_main(torch, rank: int, world: int, seed: int,
+                       ckpt_dir: str) -> dict:
+    """One rank's share of the TP phase; every check raises.
+
+    The main path: the port's ``Trainer`` on a (dp 2, tp 2) mesh
+    (``launch/mesh.mesh_axes``), sequence parallel, the replicated leaves'
+    gradients psummed over TP through the quantized butterfly, prefetching
+    FSDP with remat and the quantized DP reduce-scatter, for
+    TRAIN_TP_STEPS steps of internvl2-1b at full width and depth, then a
+    checkpoint.  Then: layer 0's ``wk`` TP psum of step 0 again on the CPU
+    over the same gloo group (bitwise), one serial step from the same
+    initial state (bitwise the main run's first), and the checkpoint read
+    back (bitwise the final parameters)."""
+    import numpy as np
+
+    from repro_torch import random as R
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models import layers as LY
+    from repro_torch.models import sharding as S
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import data as D
+    from repro_torch.train import optim as O
+    from repro_torch.train import trainer as TR
+
+    dev = torch.device("cuda")
+    torch.use_deterministic_algorithms(True)
+    dp_axes, tp_axis = mesh_axes((TP_MESH[0], TP_MESH[1]))
+    dp, tp = TP_MESH
+    dp_idx, tp_idx = rank // tp, rank % tp
+    cfg = registry.config("internvl2-1b")
+    qcfg = C.QSyncConfig(q=16, bucket=4096)
+    ctx = S.ShardCtx(tp=tp, dp=dp, dp_axes=dp_axes, tp_axis=tp_axis,
+                     qcfg=qcfg, grad_sync="lq", seq_parallel=True,
+                     quantize_tp_grads=True, prefetch=True)
+    check(tp_idx == S.tp_index(ctx) and dp_idx == F._rank_linear(dp_axes),
+          f"rank {rank}: mesh index ({dp_idx}, {tp_idx}) differs from the "
+          f"groups' ({F._rank_linear(dp_axes)}, {S.tp_index(ctx)})")
+    opt = O.OptConfig(lr=3e-4, warmup=1, decay_steps=TRAIN_TP_STEPS)
+    data = D.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                        global_batch=dp, seed=seed)
+
+    def extra(step):
+        return {"img": D.frames_at(data, step, cfg.img_tokens, cfg.d_model,
+                                   rows=(dp_idx, dp_idx + 1), device=dev)}
+
+    tc = TR.TrainConfig(steps=TRAIN_TP_STEPS, ckpt_every=10 ** 6,
+                        ckpt_dir=ckpt_dir, log_every=1, max_restarts=0)
+
+    # instrumentation: the forward gathers, the DP syncs, the quantized TP
+    # psums and the SP activation collectives (host clock, synchronized on
+    # both sides), the bytes each of them sends, the replicated leaves' TP
+    # psums of step 0
+    reg = _Regions(torch)
+    capture = {"tp": [], "on": True}
+    n_kv = cfg.d_model * cfg.n_kv * cfg.head_dim
+    sync, tpq = F._sync_grad, S._tp_quantized_psum
+
+    def sync_recorded(cfg_, g, y_entry, key, tele_like, anchor_full):
+        if key == capture.get("key"):
+            capture["dp_in"] = g.reshape(-1).to(torch.float32).clone()
+        return sync(cfg_, g, y_entry, key, tele_like, anchor_full)
+
+    def tpq_recorded(g, ctx_):
+        out = tpq(g, ctx_)
+        if capture["on"] and g.numel() == n_kv:            # wk and wv
+            capture["tp"].append((g.detach().clone(), out.detach().clone()))
+        return out
+
+    patches = [(F, "_issue", reg.timed(F._issue, "gather_s")),
+               (F, "_gather_value", reg.timed(F._gather_value, "gather_s")),
+               (F, "_sync_grad", reg.timed(sync_recorded, "sync_s")),
+               (S, "_tp_quantized_psum", reg.timed(tpq_recorded,
+                                                   "tp_sync_s")),
+               (S, "_all_gather_cat", reg.timed(S._all_gather_cat,
+                                                "tp_act_s")),
+               (S, "_reduce_scatter", reg.timed(S._reduce_scatter,
+                                                "tp_act_s")),
+               (S, "_psum", reg.timed(S._psum, "tp_act_s")),
+               (LY, "_psum", reg.timed(LY._psum, "tp_act_s")),
+               (S, "pmax_tp", reg.timed(S.pmax_tp, "tp_act_s")),
+               (LY, "pmax_tp", reg.timed(LY.pmax_tp, "tp_act_s")),
+               (C, "_ppermute", reg.counted(C._ppermute)),
+               (C, "_all_gather", reg.counted(C._all_gather))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+
+    tr = TR.Trainer(cfg, ctx, opt, tc, data, extra_batch=extra, device=dev)
+    tr._batch = reg.timed(tr._batch, "data_s")
+    state0 = tr._init()
+    k0 = R.fold_in(R.fold_in(state0["key"], 0), 1)
+    capture["key"] = T._leaf_key(k0, "wk")        # layer 0's wk, step 0
+    repl = [(g, k) for g in ("layers", "top")
+            for k, m in sorted(tr.metas[g].items()) if m.tp_replicated]
+    tp_group = [tp_axis]
+    digest0, steps, repl_equal = None, [], []
+    inner = tr.step_fn
+
+    def repl_digest(state):
+        return torch.tensor(_bits_digest(torch, {
+            f"{g}/{k}": {"p": state["params"][g][k], "y": state["y"][g][k],
+                         **{m: state["opt"][m][g][k] for m in state["opt"]}}
+            for g, k in repl}), dtype=torch.int64)
+
+    def timed_step(state, batch):
+        nonlocal digest0
+        data_s = reg.s.get("data_s", 0.0)
+        reg.reset()
+        n0 = _build.LAUNCHES["lattice_encode"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = inner(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        capture["on"] = False
+        steps.append(dict(
+            step=int(state["step"]), wall_s=wall,
+            gather_s=reg.s.get("gather_s", 0.0),
+            sync_s=reg.s.get("sync_s", 0.0),
+            tp_sync_s=reg.s.get("tp_sync_s", 0.0),
+            tp_act_s=reg.s.get("tp_act_s", 0.0), data_s=data_s,
+            loss=float(metrics["loss"]), gnorm=float(metrics["gnorm"]),
+            fails=float(metrics["fails"]),
+            sent_dp=reg.sent.get("sync_s", 0),
+            sent_tp_sync=reg.sent.get("tp_sync_s", 0),
+            sent_tp_act=reg.sent.get("tp_act_s", 0),
+            encodes=_build.LAUNCHES["lattice_encode"] - n0,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        # replicated leaves: the same bits on the two TP ranks
+        pair = F._gather_tiled(repl_digest(new), tp_group).reshape(tp, -1)
+        repl_equal.append(bool(torch.equal(pair[0], pair[1])))
+        if state["step"] == 0:
+            digest0 = _bits_digest(torch, {"p": new["params"],
+                                           "y": new["y"]})
+        return new, metrics
+
+    tr.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    final = tr.train(state0)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = dict(_build.LAUNCHES)             # read just after the path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for mod, name, fn in saved:
+        setattr(mod, name, fn)
+    del state0
+    out = dict(rank=rank, mesh_index=[dp_idx, tp_idx], steps=steps,
+               path_seconds=path_s, held_gb=held / 1e9, peak_gb=peak_gb,
+               launches=launches, restarts=tr.restarts,
+               wire_bytes_step=tr.wire_bytes_step,
+               storage_gb=sum(v.numel() * 4 for g in final["params"].values()
+                              for v in g.values()) / 1e9)
+
+    # --- checks of the main path ---------------------------------------
+    check(tr.restarts == 0, f"rank {rank}: {tr.restarts} restarts")
+    check(len(steps) == TRAIN_TP_STEPS, f"rank {rank}: {len(steps)} steps")
+    check(all(repl_equal), f"rank {rank}: the replicated leaves differ "
+          f"across the TP ranks after steps {repl_equal}")
+    syncs = T.n_scan_steps(cfg) * len(tr.metas["layers"]) + \
+        len(tr.metas["top"])
+    butterflies = sum(T.n_scan_steps(cfg) if g == "layers" else 1
+                      for g, _ in repl)
+    hops = dp.bit_length() - 1
+    rounds = tp.bit_length() - 1
+    per_step = syncs * hops + butterflies * rounds
+    tp_bytes = 0
+    for g, k in repl:
+        # the psum runs on the gathered leaf, padded for the DP shards
+        n = S.leaf_gathered_len(tr.metas[g][k], ctx)
+        b = qcfg.bucket
+        while b > 32 and n < b:
+            b //= 2
+        qb = dataclasses.replace(qcfg, bucket=b)
+        tp_bytes += C.wire_bytes_butterfly(C.flat_size_padded(n, qb), tp,
+                                           qb) * \
+            (T.n_scan_steps(cfg) if g == "layers" else 1)
+    for st in steps:
+        check(math.isfinite(st["loss"]) and math.isfinite(st["gnorm"]),
+              f"rank {rank} step {st['step']}: loss {st['loss']}")
+        check(st["sent_dp"] == tr.wire_bytes_step,
+              f"rank {rank} step {st['step']}: the DP syncs sent "
+              f"{st['sent_dp']} B, wire_bytes_step is {tr.wire_bytes_step}")
+        check(st["sent_tp_sync"] == tp_bytes,
+              f"rank {rank} step {st['step']}: the TP psums sent "
+              f"{st['sent_tp_sync']} B, the wire accounting gives {tp_bytes}")
+        check(st["encodes"] == per_step,
+              f"rank {rank} step {st['step']}: {st['encodes']} encodes, "
+              f"expected {syncs} x {hops} + {butterflies} x {rounds}")
+    for k in ("lattice_encode", "lattice_decode"):
+        check(launches[k] == TRAIN_TP_STEPS * per_step,
+              f"rank {rank}: {launches[k]} {k} launches, expected "
+              f"{TRAIN_TP_STEPS} x ({syncs} x {hops} + {butterflies} x "
+              f"{rounds})")
+    out.update(expected_launches=TRAIN_TP_STEPS * per_step, dp_syncs=syncs,
+               tp_butterflies=butterflies, tp_wire_bytes_step=tp_bytes,
+               replicated_equal_after_steps=repl_equal)
+    losses = _gather_floats(torch, [st["loss"] for st in steps])
+    check(all(ls == losses[0] for ls in losses),
+          f"the loss differs across the ranks: {losses}")
+
+    # layer 0's wk TP psum of step 0, again on the CPU over the same gloo
+    # group from the same cotangent: the card's output bit for bit
+    dp_in = capture["dp_in"]
+    match = [(g, o) for g, o in capture["tp"]
+             if torch.equal(o.reshape(-1).to(torch.float32).view(torch.int32),
+                            dp_in.view(torch.int32))]
+    check(len(match) == 1, f"rank {rank}: {len(match)} step-0 TP psums "
+          f"match layer 0's wk DP sync input")
+    g_card, o_card = match[0]
+    o_cpu = S._tp_quantized_psum(g_card.cpu(), ctx)
+    check(torch.equal(o_cpu.view(torch.int16), o_card.cpu().view(torch.int16)),
+          f"rank {rank}: layer 0's wk quantized TP psum on the card differs "
+          f"from the same psum on the CPU")
+    out["wk_tp_psum_card_equals_cpu"] = True
+    del capture["tp"], dp_in
+
+    # the checkpoint, read back as logical tensors: this rank's slices of
+    # the final parameters, bit for bit
+    ck = Path(ckpt_dir) / f"step_{TRAIN_TP_STEPS:08d}" / "arrays.npz"
+    with np.load(ck) as z:
+        logical = {"layers": {}, "top": {}}
+        for name in z.files:
+            parts = name.split("/")
+            if parts[0] == "params":
+                logical[parts[1]][parts[2]] = z[name]
+    back = CK.logical_to_params(logical, tr.metas, ctx, dp_idx, "cpu", tp_idx)
+    for g in ("layers", "top"):
+        for k, m in tr.metas[g].items():
+            sl = S.shard_len(m, ctx)
+            real = max(0, min(sl, m.numel() - dp_idx * sl))
+            a = back[g][k][..., :real].contiguous()
+            b = final["params"][g][k][..., :real].cpu().contiguous()
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"rank {rank}: the checkpoint's {g}/{k} differs from the "
+                  f"final parameters")
+    out["checkpoint_equals_params"] = True
+    del logical, back, final
+    torch.cuda.empty_cache()
+
+    # serial == prefetch: one serial step from the same initial state
+    ser = dataclasses.replace(ctx, prefetch=False)
+    st_s = TR.init_state(cfg, ser, opt, tc, R.PRNGKey(0), dp_rank=dp_idx,
+                         tp_rank=tp_idx, device=dev)
+    b0 = tr._batch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_s, m_s = TR.make_train_step(cfg, ser, opt, tc, dev)(st_s, b0)
+    torch.cuda.synchronize()
+    out["serial_step_s"] = time.perf_counter() - t0
+    dig_s = _bits_digest(torch, {"p": new_s["params"], "y": new_s["y"]})
+    check(dig_s == digest0 and float(m_s["loss"]) == steps[0]["loss"],
+          f"rank {rank}: the serial step differs from the prefetching one")
+    out["serial_equals_prefetch"] = True
+    del st_s, new_s, b0
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_kernel_checks(torch, seed: int) -> None:
+    """The encode and the single decode at the TP phase's shapes: its
+    largest DP hop (the embedding's half at dp = 2, 33,972,224
+    coordinates, bucket 4096) and a replicated leaf's butterfly (wk,
+    114,688 coordinates, bucket 4096; a norm, gathered to 1,024 for the DP
+    shards, one bucket of 1,024), q = 16,
+    coords mode: bitwise against their plain versions (on the first 2^24
+    coordinates), timed at the full shape, each beside its bound."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    q, bits = 16, 4
+    res = {}
+    for label, n, bucket in (("dp_hop", TP_HOP_N, 4096),
+                             ("tp_butterfly_wk", 896 * 128, 4096),
+                             ("tp_butterfly_norm", 1024, 1024)):
+        nb = n // bucket
+        g = torch.Generator(device=dev).manual_seed(seed + 23)
+        x = torch.randn(n, generator=g, device=dev) * 1e-3
+        u = torch.rand(n, generator=g, device=dev) - 0.5
+        sides = (2.0 / 15) * (0.5 + torch.rand(nb, generator=g, device=dev))
+        L_ = min(SLICE, n)
+        words = ops.lattice_encode(x, u, sides, q=q, bucket=bucket)
+        torch.cuda.synchronize()
+        want = ref.lattice_encode_ref(x[:L_], u[:L_], sides[:L_ // bucket],
+                                      q=q, bits=bits, bucket=bucket)
+        check(torch.equal(words[:L_ // 8], want),
+              f"lattice_encode disagrees with its plain version at {label}")
+        ms_e = cuda_ms(torch, lambda: ops.lattice_encode(
+            x, u, sides, q=q, bucket=bucket))
+        y = x + 0.01 * torch.randn(n, generator=g, device=dev) * 1e-3
+        k = ops.lattice_decode(words, y, u, sides, q=q, mode="coords",
+                               bucket=bucket)
+        torch.cuda.synchronize()
+        want_k = ref.lattice_decode_ref(words[:L_ // 8], y[:L_], u[:L_],
+                                        sides[:L_ // bucket], q=q, bits=bits,
+                                        n=L_, mode="coords", bucket=bucket)
+        check(torch.equal(k[:L_], want_k),
+              f"lattice_decode disagrees with its plain version at {label}")
+        ms_d = cuda_ms(torch, lambda: ops.lattice_decode(
+            words, y, u, sides, q=q, mode="coords", bucket=bucket))
+        be, bye = bound(n * (4 + 4 + bits / 8) + nb * 4, n * 4)
+        bd, byd = bound(n * (bits / 8 + 4 + 4 + 4) + nb * 4, n * 4)
+        res[label] = dict(
+            n=n, bucket=bucket,
+            lattice_encode=dict(ms=ms_e, bound_ms=be, bound_by=bye,
+                                max_abs_err=0.0),
+            lattice_decode=dict(ms=ms_d, bound_ms=bd, bound_by=byd,
+                                max_abs_err=0.0))
+        del x, u, y, words, k
+    say("kernel_check_tp", q=q, shapes=res)
+    torch.cuda.empty_cache()
+
+
+def train_internvl2_tp(seed: int) -> dict:
+    """The TP phase: four ranks on the one card over gloo as a (dp 2,
+    tp 2) mesh, the port's Trainer at internvl2-1b's full width and depth;
+    returns the encode and single-decode launches of the main path, summed
+    over the ranks."""
+    import shutil
+    import tempfile
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_")
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_ranks(train_tp_rank_main, (seed, ckpt_dir),
+                             "train_internvl2_tp")
+        saved = sorted(p.name for p in Path(ckpt_dir).iterdir())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(saved == [f"step_{TRAIN_TP_STEPS:08d}"],
+          f"train_internvl2_tp: the checkpoint directory holds {saved}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in COLLECTIVE_KERNELS}
+    for name in ("lattice_encode", "lattice_decode"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the TP phase")
+    for st in range(TRAIN_TP_STEPS):
+        say("train_tp_step", step=st,
+            ranks=[{k: r["steps"][st][k] for k in
+                    ("wall_s", "gather_s", "sync_s", "tp_sync_s", "tp_act_s",
+                     "data_s", "loss", "gnorm", "fails", "peak_gb",
+                     "sent_dp", "sent_tp_sync", "sent_tp_act")}
+                   | {"wire_bytes_step": r["wire_bytes_step"],
+                      "tp_wire_bytes_step": r["tp_wire_bytes_step"]}
+                   for r in ranks])
+    say("train_internvl2_tp", mesh=dict(dp=TP_MESH[0], tp=TP_MESH[1]),
+        arch="internvl2-1b", layers=24, seq=TRAIN_SEQ, image_tokens=256,
+        tokens_per_tp_rank=(TRAIN_SEQ + 256) // TP_MESH[1],
+        global_batch=TP_MESH[0], steps=TRAIN_TP_STEPS, seq_parallel=True,
+        quantize_tp_grads=True, wall_s=time.perf_counter() - t0,
+        checkpoint=saved, launches=launches,
+        ranks=[{k: r[k] for k in (
+            "rank", "mesh_index", "path_seconds", "held_gb", "peak_gb",
+            "storage_gb", "restarts", "expected_launches", "dp_syncs",
+            "tp_butterflies", "replicated_equal_after_steps",
+            "wk_tp_psum_card_equals_cpu", "checkpoint_equals_params",
+            "serial_step_s", "serial_equals_prefetch")} for r in ranks])
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-9: the multi-round service, the tree and the engine
 # ---------------------------------------------------------------------------
 
@@ -2183,6 +2616,9 @@ def main() -> int:
     train = train_internvl2(args.seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
     train_kernel_checks(torch, args.seed)
+    train = train_internvl2_tp(args.seed)
+    counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
+    tp_kernel_checks(torch, args.seed)
     for phase in (agg_service, agg_tree, agg_engine_small):
         got = phase(torch, args.seed)
         counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}

@@ -47,31 +47,33 @@ def qstate_from_numpy(y, anchor=None, device=None) -> QState:
                   anchor=None if anchor is None else tensor(anchor, dev))
 
 
-def _rank_slice(a, dp_rank: int, dev) -> torch.Tensor:
-    """(L?, tp, dp, shard) global storage -> (L?, 1, 1, shard) of one rank
-    (tp = 1)."""
+def _rank_slice(a, dp_rank: int, tp_rank: int, dev) -> torch.Tensor:
+    """(L?, tp, dp, shard) global storage -> (L?, 1, 1, shard) of the rank
+    at (tp_rank, dp_rank)."""
     a = np.asarray(a)
-    return tensor(a[..., dp_rank:dp_rank + 1, :], dev)
+    return tensor(a[..., tp_rank:tp_rank + 1, dp_rank:dp_rank + 1, :], dev)
 
 
 def train_state_from_numpy(state_np: dict, cfg, ctx, rank: int,
-                           device=None) -> dict:
+                           device=None, tp_rank: int = 0) -> dict:
     """A reference training state, as numpy arrays — params and optimizer
     moments as global storage arrays ``(L?, tp, dp, shard)``, the ``y``
-    tree (sharded anchors global too), ``step`` and ``key`` — as DP rank
-    ``rank``'s state in the port: ``(L?, 1, 1, shard)`` slices on
-    ``device`` (the CUDA device unless another is named)."""
+    tree (sharded anchors global too), ``step`` and ``key`` — as the state
+    of the port's rank at DP index ``rank`` and TP index ``tp_rank``:
+    ``(L?, 1, 1, shard)`` slices on ``device`` (the CUDA device unless
+    another is named)."""
     dev = resolve_device(device)
 
     def tree(t):
-        return {grp: {k: _rank_slice(v, rank, dev) for k, v in t[grp].items()}
+        return {grp: {k: _rank_slice(v, rank, tp_rank, dev)
+                      for k, v in t[grp].items()}
                 for grp in ("layers", "top")}
 
     def y_leaf(v):
         if isinstance(v, dict):
             a = np.asarray(v["anchor"])
             if ctx.anchor_sharded:
-                a = a[..., rank:rank + 1, :]
+                a = a[..., tp_rank:tp_rank + 1, rank:rank + 1, :]
             return {"y": tensor(v["y"], dev), "anchor": tensor(a, dev)}
         return tensor(v, dev)
 

@@ -262,9 +262,18 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _as_bytes(t: torch.Tensor):
+    """16-bit floats cross a group as their bytes (exact, and a type every
+    backend moves): (view, dtype to view the result back as, or None)."""
+    if t.dtype in (torch.bfloat16, torch.float16) and t.dim() > 0:
+        return t.contiguous().view(torch.uint8), t.dtype
+    return t, None
+
+
 def _all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` stacked in rank order: (world, *t.shape), on
     ``t``'s device."""
+    t, back = _as_bytes(t)
     world = _axis_size(group)
     staged = _host_staged(t, group)
     src = _to_host(t) if staged else t.contiguous()
@@ -274,7 +283,8 @@ def _all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
         dist.all_gather(list(out.unbind(0)), src, group=group)
     else:
         dist.all_gather_into_tensor(out.view(-1), src.view(-1), group=group)
-    return out.to(t.device) if staged else out
+    out = out.to(t.device) if staged else out
+    return out if back is None else out.view(back)
 
 
 def _ppermute(t: torch.Tensor, perm, group=None) -> torch.Tensor:
@@ -282,6 +292,7 @@ def _ppermute(t: torch.Tensor, perm, group=None) -> torch.Tensor:
     pairs; returns the tensor this rank receives (zeros when none), on
     ``t``'s device.  Sends and receives go as one
     ``batch_isend_irecv``."""
+    t, back = _as_bytes(t)
     rank = _axis_index(group)
     staged = _host_staged(t, group)
     send = _to_host(t) if staged else t.contiguous()
@@ -300,7 +311,8 @@ def _ppermute(t: torch.Tensor, perm, group=None) -> torch.Tensor:
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return recv.to(t.device) if staged else recv
+    recv = recv.to(t.device) if staged else recv
+    return recv if back is None else recv.view(back)
 
 
 # ---------------------------------------------------------------------------

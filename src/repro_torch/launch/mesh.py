@@ -1,8 +1,11 @@
-"""DP process groups; counterpart of ``repro.launch.mesh``.
+"""DP and TP process groups; counterpart of ``repro.launch.mesh``.
 
 Where the reference builds a ``jax`` mesh, the port starts a
-``torch.distributed`` group per process and builds the DP groups from it.
-Nothing here runs when the module is imported.
+``torch.distributed`` group per process and builds one process group per
+mesh axis from it: :func:`mesh_axes` lays the ranks out as
+``jax.make_mesh((dp, tp), ("data", "model"))`` does, ``model`` innermost,
+so rank = dp_idx * tp + tp_idx.  Nothing here runs when the module is
+imported.
 """
 from __future__ import annotations
 
@@ -47,6 +50,13 @@ def make_groups(shape: "tuple[int, ...]") -> tuple:
                          f"the group has {world}")
     if len(shape) == 1:
         return (None,)
+    return _axis_groups(shape)
+
+
+def _axis_groups(shape: "tuple[int, ...]") -> tuple:
+    """One process group per axis of ``shape`` (every rank's own group of
+    that axis), outermost first."""
+    world = dist.get_world_size()
     rank = dist.get_rank()
     groups = []
     strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
@@ -62,3 +72,25 @@ def make_groups(shape: "tuple[int, ...]") -> tuple:
                 mine = g
         groups.append(mine)
     return tuple(groups)
+
+
+def mesh_axes(shape: "tuple[int, ...]") -> "tuple[tuple, object]":
+    """(dp_axes, tp_axis) of a ``shape = (dp..., tp)`` layout of the
+    default group's ranks, the TP axis innermost (the reference's
+    ``mesh_axes`` contract: the last axis is ``model``): the DP process
+    groups outermost first, as ``ShardCtx.dp_axes`` takes them, and the TP
+    process group, as ``ShardCtx.tp_axis`` takes it.  With tp = 1 the DP
+    groups are :func:`make_groups`' and the TP group is ``None`` (no
+    collective runs over it).  Every rank must call this, in the same
+    order, with the same shape."""
+    shape = tuple(int(v) for v in shape)
+    if len(shape) < 2:
+        raise ValueError(f"a mesh layout is (dp..., tp), got {shape}")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"layout {shape} needs {math.prod(shape)} ranks, "
+                         f"the group has {world}")
+    if shape[-1] == 1:
+        return make_groups(shape[:-1]), None
+    groups = _axis_groups(shape)
+    return tuple(groups[:-1]), groups[-1]

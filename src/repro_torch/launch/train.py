@@ -1,19 +1,21 @@
 """End-to-end training driver; counterpart of ``repro.launch.train``.
 
-The reference's flags.  ``--mesh DPx1`` starts DP ranks, one process
-each, joined in one ``torch.distributed`` group on localhost (gloo when
-they share a card or run on the CPU, NCCL with one rank per card); a TP
-size other than 1 is refused.  The ranks run on the card unless
-``--device cpu`` is given.
+The reference's flags.  ``--mesh DPxTP`` starts DP x TP ranks, one
+process each, joined in one ``torch.distributed`` group on localhost (gloo
+when they share a card or run on the CPU, NCCL with one rank per card)
+and laid out as the reference's (dp, tp) mesh, TP innermost
+(``launch/mesh.mesh_axes``); with tp > 1 the residual stream is sequence
+parallel, as the reference's launcher sets it.  The ranks run on the card
+unless ``--device cpu`` is given.
 
 Examples:
-  # four ranks on one card, internvl2-1b at full width:
+  # four ranks on one card, internvl2-1b at full width, 2 x 2 mesh:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
-      --mesh 4x1 --seq 4096 --batch 4 --steps 3
+      --mesh 2x2 --seq 4096 --batch 2 --steps 3
 
   # CPU rehearsal, smoke config:
-  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke \\
-      --mesh 2x1 --steps 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
+      --smoke --mesh 2x2 --steps 5 --device cpu
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--mesh", default="1x1", help="DPxTP; TP must be 1")
+    ap.add_argument("--mesh", default="1x1", help="DPxTP, e.g. 2x2")
     ap.add_argument("--grad-sync", default="lq", choices=["lq", "fp32"])
     ap.add_argument("--q", type=int, default=16)
     ap.add_argument("--bucket", type=int, default=4096)
@@ -69,23 +71,26 @@ def model_config(args) -> ModelConfig:
     raise SystemExit("pass --arch or --preset")
 
 
-def run_rank(rank: int, dp: int, addr: str, args) -> None:
-    """One DP rank: join the group, build the trainer, train."""
+def run_rank(rank: int, dp: int, tp: int, addr: str, args) -> None:
+    """One rank of the (dp, tp) mesh: join the group, build the trainer,
+    train."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import init_process, make_groups
+    from repro_torch.launch.mesh import init_process, mesh_axes
     from repro_torch.models.sharding import ShardCtx
     from repro_torch.train.data import DataConfig, frames_at
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     cfg = model_config(args)
-    init_process(rank, dp, addr, device=args.device)
+    init_process(rank, dp * tp, addr, device=args.device)
     try:
-        ctx = ShardCtx(tp=1, dp=dp, dp_axes=make_groups((dp,)),
+        dp_axes, tp_axis = mesh_axes((dp, tp))
+        ctx = ShardCtx(tp=tp, dp=dp, dp_axes=dp_axes, tp_axis=tp_axis,
                        qcfg=QSyncConfig(q=args.q, bucket=args.bucket,
                                         rotate=args.rotate),
-                       grad_sync=args.grad_sync)
+                       grad_sync=args.grad_sync,
+                       seq_parallel=tp > 1 and cfg.family != "encdec")
         tc = TrainConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir, log_every=args.log_every,
                          microbatch=args.microbatch)
@@ -94,7 +99,8 @@ def run_rank(rank: int, dp: int, addr: str, args) -> None:
         data = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)
         b_loc = args.batch // dp
-        rows = (rank * b_loc, (rank + 1) * b_loc)
+        dp_rank = rank // tp
+        rows = (dp_rank * b_loc, (dp_rank + 1) * b_loc)
         extra = None
         if cfg.family == "vlm":
             def extra(step):
@@ -123,9 +129,6 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     model_config(args)                      # fail early on a bad --arch
     dp, tp = (int(v) for v in args.mesh.split("x"))
-    if tp != 1:
-        raise SystemExit(f"--mesh {args.mesh}: tensor parallelism is not "
-                         f"ported (TP must be 1; see ROADMAP.md section 1)")
     if args.batch % dp:
         raise SystemExit(f"--batch {args.batch} does not split over {dp} "
                          f"ranks")
@@ -138,8 +141,8 @@ def main(argv=None) -> int:
         s.bind(("localhost", 0))
         addr = f"tcp://localhost:{s.getsockname()[1]}"
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=run_rank, args=(r, dp, addr, args))
-             for r in range(dp)]
+    procs = [ctx.Process(target=run_rank, args=(r, dp, tp, addr, args))
+             for r in range(dp * tp)]
     for p in procs:
         p.start()
     for p in procs:

@@ -1,10 +1,13 @@
 """Transformer layers; counterpart of ``repro.models.layers``.
 
 Conventions, as the reference's: activations bf16, reductions and norms
-in f32; weights arrive gathered (TP-local logical shapes, sharding.py).
-With tp = 1 (the only size ported) every TP collective is the identity,
-so the sequence-parallel entry and exit and the vocab-parallel embedding
-and cross entropy reduce to their local forms.
+in f32; weights arrive gathered (TP-local logical shapes, sharding.py);
+attention shards query heads over tp and computes the replicated K/V
+redundantly; with ``ctx.seq_parallel`` the residual stream is sharded over
+tokens, and blocks all-gather tokens on entry and reduce-scatter partial
+outputs on exit (Megatron-SP).  The TP collectives are sharding.py's
+(their backward the reference's transposes); at tp = 1 each is the
+identity.
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import ShardCtx, psum_tp, tp_index
+from repro_torch.models.sharding import (ShardCtx, _psum, all_gather_tp,
+                                         pmax_tp, psum_tp, reduce_scatter_tp,
+                                         tp_index)
 
 ATTN_CHUNK = 512          # query-chunk length for memory-bounded attention
 
@@ -90,13 +95,21 @@ def _softmax_attend(q, k, v, mask, scale: float) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _expand_kv(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B,S,kv,hd) -> (B,S,h,hd): query head i reads kv head
-    ``_kv_map_local[i] = i // q_per_kv`` (at tp = 1 a broadcast, so its
-    gradient is a plain sum, deterministic on the card)."""
-    B, S, kv, hd = t.shape
-    return t[:, :, :, None].expand(B, S, kv, cfg.q_per_kv, hd) \
-        .reshape(B, S, kv * cfg.q_per_kv, hd)
+def _expand_kv(t: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx
+               ) -> torch.Tensor:
+    """(B,S,kv,hd) -> (B,S,h_loc,hd): local query head i reads kv head
+    ``_kv_map_local[i]``.  The local heads are a contiguous run, so this is
+    a broadcast of the kv heads they read, then a slice: its gradient is a
+    plain sum, deterministic on the card."""
+    B, S, _, hd = t.shape
+    q = cfg.q_per_kv
+    h_loc = local_heads(cfg, ctx)
+    h0 = (tp_index(ctx) // head_repl(cfg, ctx)) * h_loc
+    kv0, kv1 = h0 // q, (h0 + h_loc - 1) // q + 1
+    e = t[:, :, kv0:kv1, None].expand(B, S, kv1 - kv0, q, hd) \
+        .reshape(B, S, (kv1 - kv0) * q, hd)
+    off = h0 - kv0 * q
+    return e[:, :, off:off + h_loc]
 
 
 def attention(xg: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ShardCtx, *,
@@ -104,7 +117,8 @@ def attention(xg: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ShardCtx, *,
               kv_out: bool = False):
     """Training/prefill attention over gathered tokens.
 
-    xg: (B, S, D); returns the output (B, S, D).  S > ``ATTN_CHUNK`` runs
+    xg: (B, S, D); returns the partial output (B, S, D) of the local
+    heads (the caller psums or reduce-scatters it).  S > ``ATTN_CHUNK`` runs
     query chunks of ``ATTN_CHUNK`` rows against every key, as the
     reference's scan does."""
     B, S, D = xg.shape
@@ -122,8 +136,8 @@ def attention(xg: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ShardCtx, *,
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    k_h = _expand_kv(k, cfg)
-    v_h = _expand_kv(v, cfg)
+    k_h = _expand_kv(k, cfg, ctx)
+    v_h = _expand_kv(v, cfg, ctx)
     scale = float(1.0 / np.sqrt(hd))
 
     def mask_for(qpos):
@@ -168,30 +182,40 @@ def mlp(xg: torch.Tensor, w: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Sequence-parallel entry/exit (the reference's all-gather over tokens and
-# reduce-scatter or psum of partial outputs: identities at tp = 1)
+# Sequence-parallel entry/exit
 # ---------------------------------------------------------------------------
 
 def sp_enter(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
     """(B, S/tp, D) -> (B, S, D)."""
-    return x
+    return all_gather_tp(x, ctx, axis=1) if ctx.seq_parallel else x
 
 
 def sp_exit(partial_out: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
-    """Partial (B, S, D) outputs -> their sum over tp."""
+    """Partial (B, S, D) -> reduced (B, S/tp, D) [SP] or psum (B, S, D)."""
+    if ctx.seq_parallel:
+        return reduce_scatter_tp(partial_out, ctx, axis=1)
     return psum_tp(partial_out, ctx)
 
 
 def token_slice(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
     """(B, S, D) -> this rank's (B, S/tp, D) token slice."""
-    return x
+    if ctx.tp == 1:
+        return x
+    s_loc = x.shape[1] // ctx.tp
+    return x[:, tp_index(ctx) * s_loc:(tp_index(ctx) + 1) * s_loc]
 
 
 def attn_exit(att: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx
               ) -> torch.Tensor:
-    """Exit for attention partials (the reference divides out head
-    replication, which is 1 at tp = 1)."""
-    return sp_exit(att, ctx)
+    """Exit for attention partials.  When heads are partially replicated
+    (repl > 1), every replica contributes an identical copy of its shard's
+    partial, so the psum / reduce-scatter over-counts by exactly repl:
+    divide it back out."""
+    repl = head_repl(cfg, ctx)
+    out = sp_exit(att, ctx)
+    if repl > 1:
+        out = out / repl
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -201,12 +225,18 @@ def attn_exit(att: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx
 def vp_embed(tokens: torch.Tensor, emb: torch.Tensor, ctx: ShardCtx
              ) -> torch.Tensor:
     """tokens (B,S) int; emb (V/tp, D) local vocab slice -> (B,S,D)."""
-    v_loc = emb.shape[0]
-    local = tokens.to(torch.int64) - tp_index(ctx) * v_loc
-    ok = (local >= 0) & (local < v_loc)
-    out = Fn.embedding(local.clamp(0, v_loc - 1), emb)
+    ok, safe = _target_cols(tokens.to(torch.int64), emb.shape[0], ctx)
+    out = Fn.embedding(safe, emb)
     return psum_tp(torch.where(ok[..., None], out, torch.zeros_like(out)),
                    ctx)
+
+
+def _target_cols(ids: torch.Tensor, v_loc: int, ctx: ShardCtx):
+    """(ok, safe): whether each vocab id lies in this rank's ``v_loc``
+    vocab rows, and its row there (clipped into range)."""
+    local = ids - tp_index(ctx) * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    return ok, local.clamp(0, v_loc - 1)
 
 
 # rows of logits one block of the cross entropy holds
@@ -214,61 +244,85 @@ CE_ROWS = 1024
 
 
 class _CESum(torch.autograd.Function):
-    """(sum of masked nll, token count) of ``x @ head.T`` logits, computed
-    over blocks of ``CE_ROWS`` rows so that only one block's f32 logits
-    exist at a time; the backward recomputes each block's logits.  The
-    gradient of the nll with respect to a row's logits is
-    ``softmax - onehot(target)`` (the max shift is a constant, as the
-    reference's stop_gradient makes it)."""
+    """Sum of masked nll of the vocab-parallel logits ``x @ head.T``
+    (head: this rank's ``v_loc`` vocab rows), computed over blocks of
+    ``CE_ROWS`` rows so that only one block's f32 logits exist at a time;
+    the backward recomputes each block's logits.
+
+    Per row, as the reference's ``_ce_sum``: m = pmax over TP of the local
+    max (no gradient), z = psum of sum(exp(logits - m)), the target logit
+    psummed from the one rank whose rows hold it, nll = log z + m - tgt.
+    The padded vocab rows past V (the last rank's, when tp does not divide
+    V) take part in m and z, as they do there.  The backward is the
+    reference's transposes: the cotangent of z (g_nll / z) and of the
+    target logit (-g_nll) are psummed over TP, then reach the logits
+    through exp(logits - m) and the target's column."""
 
     @staticmethod
-    def forward(ctx, x, head, targets, mask):
+    def forward(fc, x, head, targets, mask, ctx: ShardCtx):
         hf = head.to(torch.float32)
+        T_ = x.shape[0]
+        ok, safe = _target_cols(targets, head.shape[0], ctx)
+        m_all = torch.empty(T_, dtype=torch.float32, device=x.device)
+        z_all = torch.empty(T_, dtype=torch.float32, device=x.device)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for r0 in range(0, x.shape[0], CE_ROWS):
-            r1 = min(x.shape[0], r0 + CE_ROWS)
+        for r0 in range(0, T_, CE_ROWS):
+            r1 = min(T_, r0 + CE_ROWS)
             logits = x[r0:r1].to(torch.float32) @ hf.T
-            m = torch.amax(logits, dim=-1)
+            m = pmax_tp(torch.amax(logits, dim=-1), ctx)
             zed = torch.sum(torch.exp(logits - m[:, None]), dim=-1)
-            tgt = torch.gather(logits, 1, targets[r0:r1, None])[:, 0]
+            tgt = torch.gather(logits, 1, safe[r0:r1, None])[:, 0]
+            tgt = torch.where(ok[r0:r1], tgt, torch.zeros_like(tgt))
+            if ctx.tp > 1:
+                zed, tgt = _psum(torch.stack([zed, tgt]), ctx)
             nll = torch.log(zed) + m - tgt
             total = total + torch.sum(nll * mask[r0:r1])
-        ctx.save_for_backward(x, head, targets, mask)
+            m_all[r0:r1], z_all[r0:r1] = m, zed
+        fc.sctx = ctx
+        fc.save_for_backward(x, head, targets, mask, m_all, z_all)
         return total
 
     @staticmethod
-    def backward(ctx, g):
-        x, head, targets, mask = ctx.saved_tensors
+    def backward(fc, g):
+        x, head, targets, mask, m_all, z_all = fc.saved_tensors
+        ctx = fc.sctx
         hf = head.to(torch.float32)
+        ok, safe = _target_cols(targets, head.shape[0], ctx)
         dx = torch.empty_like(x)
         dhead = torch.zeros_like(hf)
         for r0 in range(0, x.shape[0], CE_ROWS):
             r1 = min(x.shape[0], r0 + CE_ROWS)
+            g_nll = g * mask[r0:r1]
+            g_z, g_t = g_nll / z_all[r0:r1], -g_nll
+            if ctx.tp > 1:
+                g_z, g_t = _psum(torch.stack([g_z, g_t]), ctx)
             xf = x[r0:r1].to(torch.float32)
             logits = xf @ hf.T
-            p = torch.softmax(logits, dim=-1)
+            p = torch.exp(logits - m_all[r0:r1, None]) * g_z[:, None]
             rows = torch.arange(r1 - r0, device=x.device)
-            p[rows, targets[r0:r1]] -= 1.0
-            p = p * (g * mask[r0:r1])[:, None]
+            p[rows, safe[r0:r1]] += torch.where(ok[r0:r1], g_t,
+                                                torch.zeros_like(g_t))
             dx[r0:r1] = (p @ hf).to(x.dtype)
             dhead += p.T @ xf
-        return dx, dhead.to(head.dtype), None, None
+        return dx, dhead.to(head.dtype), None, None, None
 
 
 def ce_sum(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
            ctx: ShardCtx, mask: Optional[torch.Tensor]):
-    """Cross entropy of hidden rows ``x`` (T, D) against ``head`` (V, D):
-    (sum nll over the masked rows, token count)."""
+    """Vocab-parallel cross entropy of hidden rows ``x`` (T, D) against
+    ``head`` (V/tp, D), this rank's vocab rows: (sum nll over the masked
+    rows, token count), the same on every TP rank."""
     mf = (torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
           if mask is None else mask.to(torch.float32))
-    nll = _CESum.apply(x, head, targets.to(torch.int64), mf)
+    nll = _CESum.apply(x, head, targets.to(torch.int64), mf, ctx)
     return nll, torch.sum(mf)
 
 
 def vp_ce_loss(x: torch.Tensor, emb_out: torch.Tensor, targets: torch.Tensor,
                ctx: ShardCtx, mask: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
-    """Mean NLL over masked tokens of ``x @ emb_out.T``."""
+    """Mean NLL over masked tokens of the vocab-parallel ``x @ emb_out.T``
+    (replicated over tp)."""
     nll, cnt = ce_sum(x, emb_out, targets, ctx, mask)
     if mask is not None:
         return nll / torch.clamp_min(cnt, 1.0)

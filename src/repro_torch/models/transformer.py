@@ -8,7 +8,10 @@ wait for their layers (``ROADMAP.md`` section 1).
 
 Parameters arrive as each rank's ZeRO-3 storage slices (``models/
 sharding.py``) and each layer re-gathers its weights through the FSDP
-gather, whose backward runs the paper's quantized reduce-scatter.  With
+gather, whose backward runs the paper's quantized reduce-scatter (after
+the TP psum of a replicated leaf's gradient).  With ``ctx.seq_parallel``
+the residual stream is sliced over the TP ranks after the embedding and
+gathered back before the vocab-parallel cross entropy.  With
 ``ctx.remat`` each layer's body, its gathers included, runs under
 ``torch.utils.checkpoint`` (non-reentrant): the backward re-gathers and
 recomputes the layer, as the reference's ``jax.checkpoint(body)`` does.
@@ -195,10 +198,12 @@ def all_metas(cfg: ModelConfig, ctx: ShardCtx) -> dict:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, ctx: ShardCtx, key, *,
-                dp_rank: Optional[int] = None, device=None) -> dict:
+                dp_rank: Optional[int] = None, tp_rank: int = 0,
+                device=None) -> dict:
     """The reference's ``init_params``: one key per leaf, split in sorted
     leaf order (layers, then top).  Global storage arrays, or with
-    ``dp_rank`` that rank's slices (only their elements drawn)."""
+    ``dp_rank`` the slices of the rank at (``tp_rank``, ``dp_rank``) (only
+    their elements drawn)."""
     metas = all_metas(cfg, ctx)
     L = n_scan_steps(cfg)
     out: dict = {"layers": {}, "top": {}}
@@ -207,7 +212,7 @@ def init_params(cfg: ModelConfig, ctx: ShardCtx, key, *,
     for grp in ("layers", "top"):
         for name, meta in sorted(metas[grp].items()):
             out[grp][name] = init_leaf(ks[i], meta, ctx, L, dp_rank=dp_rank,
-                                       device=device)
+                                       tp_rank=tp_rank, device=device)
             i += 1
     return out
 
@@ -345,8 +350,10 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
     params: one rank's storage slices (a stacked leaf may also be a list
     of per-layer slices); tele: zeros requiring grad (leaf_tele_width per
     leaf, per layer); batch: {"tokens": (B, S) int, "targets": (B, S) int,
-    "mask": (B, S) f32; vlm also "img": (B, Timg, D)}, the rank's rows.
-    The loss is DP-local (the gather's backward takes the DP mean)."""
+    "mask": (B, S) f32; vlm also "img": (B, Timg, D)}, the DP rank's rows
+    (the same on every TP rank of a DP group).  The loss is TP-global and
+    DP-local (the gather's backward takes the DP mean); the first return
+    is it divided by tp, the second's "loss" the loss itself."""
     if cfg.family not in FORWARD_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family's layers are not ported yet; see "
@@ -367,8 +374,10 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
         x = LY.vp_embed(tokens, emb, ctx) * cfg.emb_scale
         if cfg.family == "vlm":
             x = torch.cat([batch["img"].to(x.dtype), x], dim=1)
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
+        S_full = x.shape[1]
+        positions = torch.arange(S_full, dtype=torch.int32, device=x.device)
+        if ctx.seq_parallel and ctx.tp > 1:
+            x = LY.token_slice(x, ctx)
 
         def apply_block(xcur, wts):
             return dense_block(xcur, wts, cfg, ctx, positions)
@@ -422,11 +431,17 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
                   if mask is None else mask.to(torch.float32))
             mask = torch.cat([pad_m, m0], dim=1)
 
+        if ctx.seq_parallel and ctx.tp > 1:
+            # the vocab-parallel CE needs every token on every rank (the
+            # vocab is sharded over tp too): gather the tokens back
+            x = LY.sp_enter(x, ctx)
         nll_sum, cnt = LY.ce_sum(x.reshape(-1, cfg.d_model), head,
                                  targets.reshape(-1), ctx,
                                  None if mask is None else mask.reshape(-1))
         loss = nll_sum / torch.clamp_min(cnt, 1.0)
         loss = loss + 0.01 * aux
+        # the loss is replicated over tp and every TP collective's backward
+        # is its transpose, so 1/tp makes each rank's gradient exact
         return loss / ctx.tp, {"loss": loss.detach(), "aux": aux.detach()}
 
     return loss_fn

@@ -7,11 +7,11 @@ Atomic: write to ``<dir>/tmp.<step>`` then ``os.replace`` — a crash
 mid-write never corrupts the latest checkpoint.  ``keep`` bounds disk use.
 
 Because tensors are stored logically, a checkpoint written by either
-package, at any DP size, restores into the other.  In the port each rank
-holds only its shards: :func:`params_to_logical` takes every rank's shard
-stacked (the trainer gathers them to rank 0, which writes), and
-:func:`logical_to_params` returns one rank's slices (every rank reads the
-file and keeps its own).
+package, at any DP and TP size, restores into the other.  In the port each
+rank holds only its shards: :func:`params_to_logical` takes every rank's
+shard stacked over both axes (the trainer gathers them to rank 0, which
+writes), and :func:`logical_to_params` returns one rank's slices (every
+rank reads the file and keeps its own).
 """
 from __future__ import annotations
 
@@ -132,7 +132,7 @@ def reshard_y(tree, target):
 
 def params_to_logical(params: dict, metas: dict, ctx) -> dict:
     """Storage tree {"layers": {...}, "top": {...}} of *every* rank's
-    shards — stacked leaves (L, 1, dp, shard), top (1, dp, shard), the
+    shards — stacked leaves (L, tp, dp, shard), top (tp, dp, shard), the
     reference's global layout — to a logical numpy tree."""
     from repro_torch.models.sharding import storage_to_logical
     out: dict = {}
@@ -152,9 +152,10 @@ def params_to_logical(params: dict, metas: dict, ctx) -> dict:
 
 
 def logical_to_params(logical: dict, metas: dict, ctx, dp_rank: int,
-                      device=None) -> dict:
-    """Logical tree -> rank ``dp_rank``'s storage slices (L?, 1, 1, shard)
-    for the (possibly different) ctx."""
+                      device=None, tp_rank: int = 0) -> dict:
+    """Logical tree -> the storage slices (L?, 1, 1, shard) of the rank at
+    DP index ``dp_rank`` and TP index ``tp_rank`` for the (possibly
+    different) ctx."""
     from repro_torch.models.sharding import logical_to_storage
     out: dict = {}
     for grp, leaves in logical.items():
@@ -165,8 +166,9 @@ def logical_to_params(logical: dict, metas: dict, ctx, dp_rank: int,
             if meta.scanned:
                 st = torch.stack([logical_to_storage(a[l], meta, ctx)
                                   for l in range(a.shape[0])])
-                st = st[:, :, dp_rank:dp_rank + 1]
+                st = st[:, tp_rank:tp_rank + 1, dp_rank:dp_rank + 1]
             else:
-                st = logical_to_storage(a, meta, ctx)[:, dp_rank:dp_rank + 1]
+                st = logical_to_storage(a, meta, ctx)[
+                    tp_rank:tp_rank + 1, dp_rank:dp_rank + 1]
             out[grp][name] = st.contiguous().to(device)
     return out

@@ -1,20 +1,24 @@
 """Fault-tolerant ZeRO-3 trainer; counterpart of ``repro.train.trainer``.
 
-One step, on every DP rank (one process each):
+One step, on every rank (one process each, a (DP, TP) mesh of them):
   1. the local loss, then ``loss.backward()``: each layer's FSDP gather
      (``dist/fsdp.py``) reduce-scatters its gradient over DP with the
-     paper's lattice quantization, and the per-bucket decode telemetry
+     paper's lattice quantization (a replicated leaf's after its TP psum,
+     ``models/sharding.py``), and the per-bucket decode telemetry
      arrives as the gradient of the zero ``tele`` inputs;
   2. the global grad-norm: each leaf's local sum of squares, summed over
-     the DP ranks in rank order (one small all-gather for all leaves),
-     added in the reference's leaf order; then the shard-local optimizer;
+     the DP ranks in rank order (one small all-gather for all leaves) and,
+     for a leaf sliced over TP, over the TP ranks too; added in the
+     reference's leaf order; then the shard-local optimizer;
   3. the per-bucket ``y`` state from the telemetry (the transition of
      :func:`repro_torch.core.qstate.update_y`): failed buckets escalate,
      clean ones relax toward their measured distances.
 
 The autograd engine runs the backward's nodes in an order fixed by the
 graph (one device, one thread), and every rank builds the same graph, so
-every rank issues its leaves' syncs in the same order.
+every rank issues its leaves' syncs, and its TP collectives, in the same
+order.  The batch rows are drawn per DP rank; the TP ranks of a DP group
+share them.
 
 Fault tolerance as the reference's: checkpoint every ``ckpt_every`` steps
 (atomic, logical layout); the loop catches a ``RuntimeError`` (a CUDA,
@@ -39,7 +43,7 @@ from repro_torch.core.lattice import fma_f32
 from repro_torch.dist import fsdp as F
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import ShardCtx, shard_len
+from repro_torch.models.sharding import ShardCtx, _psum, shard_len, tp_index
 from repro_torch.train import checkpoint as C
 from repro_torch.train import data as D
 from repro_torch.train import optim as O
@@ -185,10 +189,15 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt_cfg: O.OptConfig,
         else:
             metrics, gp, gt = lg(params, y, batch, kstep)
 
-        # global grad norm: each leaf's sum of squares summed over DP,
-        # added in the reference's leaf order
+        # global grad norm: each leaf's sum of squares summed over DP (and
+        # over TP for a leaf sliced over it), added in the reference's
+        # leaf order
         sums = psum_dp(torch.stack([torch.sum(gp[g][k].to(torch.float32) ** 2)
                                     for g, k in names]), ctx)
+        if ctx.tp > 1:
+            sliced = torch.tensor([not metas[g][k].tp_replicated
+                                   for g, k in names], device=sums.device)
+            sums = torch.where(sliced, _psum(sums, ctx), sums)
         sq = torch.zeros((), dtype=torch.float32, device=sums.device)
         for s in sums:
             sq = sq + s
@@ -210,31 +219,41 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt_cfg: O.OptConfig,
 
 def init_state(cfg: ModelConfig, ctx: ShardCtx, opt_cfg: O.OptConfig,
                tc: TrainConfig, key, *, dp_rank: Optional[int] = None,
-               device=None) -> dict:
-    """The reference's initial state, as rank ``dp_rank``'s slices (the
-    rank of the process's DP groups unless given)."""
+               tp_rank: Optional[int] = None, device=None) -> dict:
+    """The reference's initial state, as the slices of the rank at DP index
+    ``dp_rank`` and TP index ``tp_rank`` (the process's own unless
+    given)."""
     if dp_rank is None:
         dp_rank = F._rank_linear(ctx.dp_axes)
-    params = T.init_params(cfg, ctx, key, dp_rank=dp_rank, device=device)
+    if tp_rank is None:
+        tp_rank = tp_index(ctx)
+    params = T.init_params(cfg, ctx, key, dp_rank=dp_rank, tp_rank=tp_rank,
+                           device=device)
     return {"params": params, "opt": O.init_opt_state(params, opt_cfg),
             "y": T.y_init(cfg, ctx, tc.y0, device=device), "step": 0,
             "key": key}
 
 
-def _gather_shards(t: torch.Tensor, dp: int) -> Optional[np.ndarray]:
-    """Every DP rank's ``(L?, 1, 1, shard)`` slice, stacked on the DP axis
-    into the reference's global layout, on rank 0 (None elsewhere).  The
-    ranks of the default group are the DP ranks in storage order."""
-    if dp == 1:
+def _gather_shards(t: torch.Tensor, ctx: ShardCtx) -> Optional[np.ndarray]:
+    """Every rank's ``(L?, 1, 1, shard)`` slice, stacked on the TP and DP
+    axes into the reference's global ``(L?, tp, dp, shard)`` layout, on
+    rank 0 (None elsewhere).  The default group's rank of a slice is
+    dp_idx * tp + tp_idx (``launch/mesh.mesh_axes``' layout)."""
+    world = ctx.tp * ctx.dp
+    if world == 1:
         return t.detach().cpu().numpy()
     gloo = dist.get_backend() == dist.Backend.GLOO
     src = t.detach().cpu() if gloo else t.detach().contiguous()
     rank = dist.get_rank()
-    parts = [torch.empty_like(src) for _ in range(dp)] if rank == 0 else None
+    parts = [torch.empty_like(src) for _ in range(world)] if rank == 0 \
+        else None
     dist.gather(src, parts, dst=0)
     if rank != 0:
         return None
-    return torch.cat([p.cpu() for p in parts], dim=-2).numpy()
+    flat = torch.stack([p.cpu()[..., 0, 0, :] for p in parts], dim=-2)
+    lead = tuple(flat.shape[:-2])
+    glob = flat.reshape(lead + (ctx.dp, ctx.tp, flat.shape[-1]))
+    return glob.transpose(-3, -2).contiguous().numpy()
 
 
 class Trainer:
@@ -252,10 +271,12 @@ class Trainer:
         self.extra_batch = extra_batch
         self.failure_hook = failure_hook
         self.device = resolve_device(device)
-        self.rank = F._rank_linear(ctx.dp_axes)
+        self.rank = F._rank_linear(ctx.dp_axes)      # the DP rank: its rows
+        self.tp_rank = tp_index(ctx)
+        self.lead = not dist.is_initialized() or dist.get_rank() == 0
         if tc.ckpt_dir is None:
             tc = dataclasses.replace(
-                tc, ckpt_dir=_fresh_ckpt_dir(self.rank, ctx.dp))
+                tc, ckpt_dir=_fresh_ckpt_dir(self.lead, ctx.world))
         self.opt_cfg, self.tc, self.data_cfg = opt_cfg, tc, data_cfg
         if F._dp_sizes(ctx.dp_axes) and np.prod(F._dp_sizes(ctx.dp_axes)) \
                 != ctx.dp:
@@ -266,7 +287,7 @@ class Trainer:
         self.history: list = []
         self.restarts = 0
         self.wire_bytes_step = self._wire_bytes_step()
-        if self.rank == 0:
+        if self.lead:
             print(f"[train] grad sync wire: "
                   f"{self.wire_bytes_step / 2**20:.2f} MiB/step per rank "
                   f"({ctx.fsdp_config().sync}, packed={ctx.qcfg.packed})",
@@ -313,17 +334,16 @@ class Trainer:
     def _init(self) -> dict:
         return init_state(self.cfg, self.ctx, self.opt_cfg, self.tc,
                           _random.PRNGKey(0), dp_rank=self.rank,
-                          device=self.device)
+                          tp_rank=self.tp_rank, device=self.device)
 
     def save(self, state):
         """Rank 0 writes the logical tensors it gathers from every rank's
-        shards (the reference's format)."""
-        dp = self.ctx.dp
+        shards (the reference's format), and its own ``y``."""
         trees = {"params": state["params"], **{f"opt/{k}": v for k, v in
                                                state["opt"].items()}}
         glob = {}
         for name, tree in trees.items():
-            glob[name] = {grp: {k: _gather_shards(v, dp)
+            glob[name] = {grp: {k: _gather_shards(v, self.ctx)
                                 for k, v in sorted(tree[grp].items())}
                           for grp in ("layers", "top")}
         y_np = {grp: {} for grp in ("layers", "top")}
@@ -332,12 +352,12 @@ class Trainer:
                 if isinstance(v, dict):
                     a = v["anchor"]
                     y_np[grp][k] = {"y": v["y"].cpu().numpy(),
-                                    "anchor": (_gather_shards(a, dp)
+                                    "anchor": (_gather_shards(a, self.ctx)
                                                if self.ctx.anchor_sharded
                                                else a.cpu().numpy())}
                 else:
                     y_np[grp][k] = v.cpu().numpy()
-        if self.rank == 0:
+        if self.lead:
             logical = C.params_to_logical(glob["params"], self.metas, self.ctx)
             opt_logical = {k.split("/")[1]: C.params_to_logical(
                 v, self.metas, self.ctx) for k, v in glob.items()
@@ -345,7 +365,7 @@ class Trainer:
             C.save(self.tc.ckpt_dir, int(state["step"]),
                    {"params": logical, "opt": opt_logical, "y": y_np},
                    {"arch": self.cfg.arch}, keep=self.tc.keep)
-        if self.ctx.dp > 1:
+        if self.ctx.world > 1:
             dist.barrier()
 
     def restore(self) -> Optional[dict]:
@@ -359,14 +379,16 @@ class Trainer:
         state = self._init()
         state["params"] = C.logical_to_params(tree["params"], self.metas,
                                               self.ctx, self.rank,
-                                              self.device)
+                                              self.device, self.tp_rank)
         if "opt" in tree:
             state["opt"] = {k: C.logical_to_params(v, self.metas, self.ctx,
-                                                   self.rank, self.device)
+                                                   self.rank, self.device,
+                                                   self.tp_rank)
                             for k, v in tree["opt"].items()}
         fresh = T.y_init(self.cfg, self.ctx, self.tc.y0, device=self.device)
         restored = C.reshard_y(tree["y"], _global_y_shapes(fresh, self.ctx))
-        y = _local_y(restored, fresh, self.ctx, self.rank, self.device)
+        y = _local_y(restored, fresh, self.ctx, self.rank, self.tp_rank,
+                     self.device)
         if y is not None:
             state["y"] = y
         state["step"] = int(step)
@@ -390,7 +412,7 @@ class Trainer:
                     m["dt"] = time.perf_counter() - t0
                     m["wire_mb"] = self.wire_bytes_step / 2**20
                     self.history.append(m)
-                    if self.rank == 0:
+                    if self.lead:
                         print(f"[train] step={step} loss={m['loss']:.4f} "
                               f"gnorm={m['gnorm']:.3f} "
                               f"fails={m['fails']:.0f} dt={m['dt']:.2f}s",
@@ -410,32 +432,32 @@ class Trainer:
         return state
 
 
-def _fresh_ckpt_dir(rank: int, dp: int) -> str:
+def _fresh_ckpt_dir(lead: bool, world: int) -> str:
     """A new directory under the caller's TMPDIR, made by rank 0 and shared
     with every rank, so that a run without a ``ckpt_dir`` neither resumes
     from nor overwrites another run's checkpoints."""
-    path = [tempfile.mkdtemp(prefix="repro_ckpt_") if rank == 0 else None]
-    if dp > 1:
+    path = [tempfile.mkdtemp(prefix="repro_ckpt_") if lead else None]
+    if world > 1:
         dist.broadcast_object_list(path, src=0)
     return path[0]
 
 
 def _global_y_shapes(y: dict, ctx: ShardCtx) -> dict:
     """Shapes of the reference's global y tree for this layout (sharded
-    anchors (L?, 1, dp, shard)), as numpy placeholders for reshard_y."""
+    anchors (L?, tp, dp, shard)), as numpy placeholders for reshard_y."""
     def one(v):
         if isinstance(v, dict):
             a = tuple(v["anchor"].shape)
             if ctx.anchor_sharded:
-                a = a[:-2] + (ctx.dp, a[-1])
+                a = a[:-3] + (ctx.tp, ctx.dp, a[-1])
             return {"y": np.empty(tuple(v["y"].shape), np.float32),
                     "anchor": np.empty(a, np.float32)}
         return np.empty(tuple(v.shape), np.float32)
     return {grp: {k: one(v) for k, v in y[grp].items()} for grp in y}
 
 
-def _local_y(restored: dict, fresh: dict, ctx: ShardCtx, rank: int, device
-             ) -> Optional[dict]:
+def _local_y(restored: dict, fresh: dict, ctx: ShardCtx, rank: int,
+             tp_rank: int, device) -> Optional[dict]:
     """The restored global y tree as this rank's state, or None when its
     structure or shapes do not fit."""
     want = _global_y_shapes(fresh, ctx)
@@ -452,7 +474,7 @@ def _local_y(restored: dict, fresh: dict, ctx: ShardCtx, rank: int, device
                         return None
                     a = np.asarray(r["anchor"])
                     if ctx.anchor_sharded:
-                        a = a[..., rank:rank + 1, :]
+                        a = a[..., tp_rank:tp_rank + 1, rank:rank + 1, :]
                     out[grp][k] = {
                         "y": torch.as_tensor(np.asarray(r["y"]),
                                              device=device),

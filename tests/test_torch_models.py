@@ -189,12 +189,18 @@ def test_metas_and_state_shapes_every_arch(dp):
 
 
 def test_forward_of_other_families_raises():
+    """The families without ported layers raise; tensor parallelism is
+    ported, so ``ShardCtx(tp=2)`` builds, with the reference's fields and
+    defaults."""
     _, tctx = _ctx_pair()
     for arch in ("granite-moe-1b-a400m", "mamba2-1.3b", "recurrentgemma-9b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TT.make_loss_fn(TR.smoke_config(arch), tctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.ShardCtx(tp=2)
+    t, j = TS.ShardCtx(tp=2), JS.ShardCtx(tp=2)
+    assert (t.tp, t.dp, t.world) == (j.tp, j.dp, j.world) == (2, 1, 2)
+    for f in ("quantize_tp_grads", "seq_parallel", "grad_sync", "remat",
+              "gather_dtype", "anchor_grads", "anchor_sharded", "prefetch"):
+        assert getattr(t, f) == getattr(j, f), f
 
 
 @pytest.mark.parametrize("dp", [1, 4])
