@@ -13,12 +13,16 @@ nothing of the JAX package.  The script
 2. holds each kernel against its plain torch version at the shapes the
    main paths give it — the comparison on a leading slice of 2^24
    coordinates (the plain versions' temporaries are too large for the
-   whole shape), the timing at the full shape — and prints its time,
-   bound, plain time and library-call time.  The FWHT is held bitwise
-   also at every row length it takes (4 to 16384), in f32 and bf16, and
-   on two views off a 16-byte boundary, and is timed in bf16 too; the
-   ``sass`` line counts its LDS, STS and SHFL at d = 4096 and its
-   registers, and fails if any instance of it spilled;
+   whole shape; the encode and the single decode on the last 2^24 too),
+   the timing at the full shape — and prints its time (``ms``, one call;
+   ``device_ms``, a run of back-to-back calls), bound, plain time and
+   library-call time.  The FWHT is held bitwise also at every row length
+   it takes (4 to 16384), in f32 and bf16, and on two views off a 16-byte
+   boundary, and is timed in bf16 too; the ``sass`` line counts its LDS,
+   STS and SHFL at d = 4096 and its registers, and fails if any instance
+   of it spilled, and fails unless the encode's and the single decode's
+   main instances move their streams by 128-bit loads and stores and no
+   instance of theirs spilled;
 3. runs round A: an unrotated, unanchored round of 16 clients over a
    277,845,504-dimensional vector (the gradient of whisper-small, the
    smallest model the repo configures), q = 16, bucket = 4096, y0 = 0.25;
@@ -79,7 +83,8 @@ nothing of the JAX package.  The script
    step's wall, gather, DP sync, TP sync, SP activation, data, loss, peak
    memory and bytes per rank; then holds the encode and single decode
    against their plain versions at the phase's largest DP hop
-   (33,972,224 coordinates) and at a butterfly's shapes;
+   (33,972,224 coordinates) and at a butterfly's shapes (there also timed
+   from a CUDA graph, and the wrappers' host microseconds per call);
 7. runs the anchored multi-round service (``agg.service``) lockstep for
    three rounds at d = 277,845,504 (q = 16, bucket = 4096, y0 = 0.25),
    warm-started at ``base``; client i of round r sends
@@ -251,6 +256,67 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, min_reps: int = 20, window_ms: float = 10.0,
+              max_reps: int = 2000) -> "tuple[float, int]":
+    """Milliseconds of one ``fn`` on the card: CUDA events around R
+    back-to-back calls, over R, after a warm-up.  R is at least
+    ``min_reps`` and large enough for a window of ``window_ms``.  Where the
+    host's work per call outlasts the kernel (small shapes), this is the
+    host's rate; ``graph_ms`` is then the device's.  Returns (ms, R)."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    one = max(a.elapsed_time(b), 1e-3)
+    reps = max(min_reps, min(max_reps, math.ceil(window_ms / one)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Milliseconds of one ``fn`` on the card without the host's launch
+    work: ``reps`` calls captured in one CUDA graph, replayed between two
+    CUDA events, over ``reps``.  ``fn`` must launch on the current stream
+    and copy nothing from the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
+def host_us_per_call(torch, fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn``: ``time.perf_counter`` over
+    ``calls`` calls, then one synchronize, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def bound(nbytes: float, ops: float,
           ops_per_s: float = F32_OPS_PER_S) -> "tuple[float, str]":
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -296,11 +362,7 @@ def fwht_sass(_build) -> dict:
     counts = sass_counts(bodies[0], ("LDS", "STS", "SHFL"))
     check(all(counts.values()), f"{FWHT_MAIN}'s SASS lacks LDS, STS or "
           f"SHFL: {counts}")
-    usage = {name: dict(zip(("registers", "stack", "shared", "local"),
-                            map(int, vals)))
-             for name, *vals in re.findall(
-                 r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) "
-                 r"LOCAL:(\d+)", cuobjdump(_build, "fwht", "-res-usage"))}
+    usage = res_usage(_build, "fwht")
     main = [u for name, u in usage.items() if FWHT_MAIN in name]
     check(len(main) == 1, f"no single {FWHT_MAIN} in cuobjdump -res-usage")
     check(all(u["local"] == 0 for u in usage.values()),
@@ -310,6 +372,61 @@ def fwht_sass(_build) -> dict:
                 dynamic_shared_bytes=4 * 4096)
 
 
+def res_usage(_build, name: str) -> dict:
+    """Registers, stack, static shared and local bytes of every function in
+    a built kernel library (``cuobjdump -res-usage``)."""
+    return {fn: dict(zip(("registers", "stack", "shared", "local"),
+                         map(int, vals)))
+            for fn, *vals in re.findall(
+                r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+                r"LOCAL:(\d+)", cuobjdump(_build, name, "-res-usage"))}
+
+
+# the main instances of the encode and the single decode: 4-bit colors
+# (q = 16) and 16-byte accesses, template <BITS = 4, VEC = 4, ...>; the
+# encode's third and fourth template arguments are ANCHOR and COORDS
+LATTICE_MAIN = {"lattice_encode": "lattice_encode_kernelILi4ELi4E",
+                "lattice_decode": "lattice_decode_kernelILi4ELi4E"}
+
+
+def lattice_sass(_build) -> dict:
+    """The encode's and the single decode's main instances must move their
+    f32 and int32 streams with 128-bit global loads and stores
+    (``LDG.E.128``, ``STG.E.128`` in the SASS; the encode without coords
+    stores only its 16-bit units of words), and no instance of any kernel
+    in the two libraries may use local memory or a stack frame (ptxas
+    spilled nothing)."""
+    out = {}
+    for lib, main in LATTICE_MAIN.items():
+        parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
+        bodies = {name: body for name, body in zip(parts[1::2], parts[2::2])
+                  if main in name}
+        check(len(bodies) == (4 if lib == "lattice_encode" else 6),
+              f"{lib}: {len(bodies)} main instances ({main}) in the SASS")
+        usage = res_usage(_build, lib)
+        check(usage and all(u["local"] == 0 and u["stack"] == 0
+                            for u in usage.values()),
+              f"a {lib} kernel uses local memory or a stack frame (ptxas "
+              f"spilled): {usage}")
+        inst = {}
+        for name, body in bodies.items():
+            ops = re.findall(r"\b((?:LDG|STG)(?:\.[A-Z0-9_]+)+)", body)
+            c = {f"{op}_{w}": sum(o.startswith(op) and f".{w}" in o
+                                  for o in ops)
+                 for op in ("LDG", "STG") for w in (128, "U16")}
+            c["registers"] = usage.get(name, {}).get("registers")
+            stores_128 = (lib == "lattice_decode"
+                          or re.search(r"kernelILi4ELi4ELb\dELb1E", name))
+            check(c["LDG_128"] > 0 and (c["STG_128"] > 0 if stores_128
+                                        else c["STG_U16"] > 0),
+                  f"{lib} {name}: its streams do not move by 128-bit "
+                  f"global loads and stores: {c}")
+            inst[name] = c
+        out[lib] = dict(main_instances=inst, max_registers=max(
+            u["registers"] for u in usage.values()))
+    return out
+
+
 def max_abs_err(torch, got, want) -> float:
     return float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
 
@@ -317,6 +434,14 @@ def max_abs_err(torch, got, want) -> float:
 # ---------------------------------------------------------------------------
 # Phase 2: every kernel against its plain version
 # ---------------------------------------------------------------------------
+
+def ends(n: int) -> "list[tuple[int, int]]":
+    """The coordinate ranges held against the plain versions: the first
+    and the last ``SLICE`` (one range when they overlap)."""
+    if n <= SLICE:
+        return [(0, n)]
+    return [(0, SLICE), (n - SLICE, n)]
+
 
 def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     from repro_torch.kernels import ops, ref
@@ -336,25 +461,31 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     u = torch.rand(n_pad, generator=g, device=dev) - 0.5
     sides = side * (0.5 + torch.rand(nb, generator=g, device=dev))
     a = x + 0.02 * torch.randn(n_pad, generator=g, device=dev)
-    L_ = min(SLICE, n_pad)
     err = 0.0
     for anc in (None, a):
         words, k = ops.lattice_encode(x, u, sides, q=q, return_coords=True,
                                       anchor=anc, bucket=bucket)
         torch.cuda.synchronize()
-        ww, wk = ref.lattice_encode_ref(
-            x[:L_], u[:L_], sides[:L_ // bucket], q=q, bits=bits,
-            return_coords=True, anchor=None if anc is None else anc[:L_],
-            bucket=bucket)
-        check(torch.equal(words[:L_ // 8], ww) and torch.equal(k[:L_], wk),
-              "lattice_encode disagrees with its plain version (anchor="
-              f"{anc is not None})")
-        err = max(err, max_abs_err(torch, words[:L_ // 8], ww),
-                  max_abs_err(torch, k[:L_], wk))
-        del words, k, ww, wk
+        for c0, c1 in ends(n_pad):
+            ww, wk = ref.lattice_encode_ref(
+                x[c0:c1], u[c0:c1], sides[c0 // bucket:c1 // bucket], q=q,
+                bits=bits, return_coords=True,
+                anchor=None if anc is None else anc[c0:c1], bucket=bucket)
+            check(torch.equal(words[c0 // 8:c1 // 8], ww)
+                  and torch.equal(k[c0:c1], wk),
+                  "lattice_encode disagrees with its plain version (anchor="
+                  f"{anc is not None}, coordinates {c0}:{c1})")
+            err = max(err, max_abs_err(torch, words[c0 // 8:c1 // 8], ww),
+                      max_abs_err(torch, k[c0:c1], wk))
+            del ww, wk
+        del words, k
     ms = cuda_ms(torch, lambda: ops.lattice_encode(
         x, u, sides, q=q, return_coords=True, bucket=bucket))
+    dms, reps = device_ms(torch, lambda: ops.lattice_encode(
+        x, u, sides, q=q, return_coords=True, bucket=bucket))
     ms_anchored = cuda_ms(torch, lambda: ops.lattice_encode(
+        x, u, sides, q=q, return_coords=True, anchor=a, bucket=bucket))
+    dms_anchored, _ = device_ms(torch, lambda: ops.lattice_encode(
         x, u, sides, q=q, return_coords=True, anchor=a, bucket=bucket))
     del a
 
@@ -372,8 +503,12 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
                                  bound_by=by, library_ms=None,
                                  max_abs_err=err,
                                  shape=f"N={n_pad}, q={q}, coords",
+                                 device_ms=dms, reps=reps,
+                                 share_of_bound=b / dms,
                                  anchored_ms=ms_anchored,
-                                 anchored_bound_ms=b_anc)
+                                 anchored_device_ms=dms_anchored,
+                                 anchored_bound_ms=b_anc,
+                                 anchored_share_of_bound=b_anc / dms_anchored)
 
     # --- batched decode: coords mode, per-sender per-bucket sides, each
     # sender's drawn on its own around the round's side
@@ -394,18 +529,24 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
         got = ops.lattice_decode(w1, x, u, s1, q=q, mode=mode, ref=rr,
                                  avg_cnt=avg, bucket=bucket)
         torch.cuda.synchronize()
-        want = ref.lattice_decode_ref(
-            w1[:L_ // 8], x[:L_], u[:L_], s1[:L_ // bucket], q=q, bits=bits,
-            n=L_, mode=mode, avg_cnt=avg, bucket=bucket,
-            ref=None if rr is None else rr[:L_])
-        check(torch.equal(got[:L_].view(torch.int32),
-                          want.view(torch.int32)),
-              f"lattice_decode disagrees with its plain version ({mode}, "
-              f"ref={rr is not None}, avg_cnt={avg})")
-        err = max(err, max_abs_err(torch, got[:L_], want))
-        del got, want
+        for c0, c1 in ends(n_pad):
+            want = ref.lattice_decode_ref(
+                w1[c0 // 8:c1 // 8], x[c0:c1], u[c0:c1],
+                s1[c0 // bucket:c1 // bucket], q=q, bits=bits, n=c1 - c0,
+                mode=mode, avg_cnt=avg, bucket=bucket,
+                ref=None if rr is None else rr[c0:c1])
+            check(torch.equal(got[c0:c1].view(torch.int32),
+                              want.view(torch.int32)),
+                  f"lattice_decode disagrees with its plain version ({mode}, "
+                  f"ref={rr is not None}, avg_cnt={avg}, coordinates "
+                  f"{c0}:{c1})")
+            err = max(err, max_abs_err(torch, got[c0:c1], want))
+            del want
+        del got
     del r1
     ms = cuda_ms(torch, lambda: ops.lattice_decode(
+        w1, x, u, s1, q=q, mode="coords", bucket=bucket))
+    dms, reps = device_ms(torch, lambda: ops.lattice_decode(
         w1, x, u, s1, q=q, mode="coords", bucket=bucket))
 
     def plain_single():
@@ -419,7 +560,8 @@ def kernel_checks(torch, n_pad: int, bucket: int, senders: int, seed: int):
     b, by = bound(n_pad * (bits / 8 + 4 + 4 + 4) + nb * 4, n_pad * 4)
     out["lattice_decode"] = dict(
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        max_abs_err=err, shape=f"N={n_pad}, q={q}, coords, per-bucket sides")
+        max_abs_err=err, shape=f"N={n_pad}, q={q}, coords, per-bucket sides",
+        device_ms=dms, reps=reps, share_of_bound=b / dms)
     del w1, s1, u
     torch.cuda.empty_cache()
 
@@ -464,6 +606,8 @@ def batched_decode_check(torch, x, u, q: int, senders: int, bucket: int,
     del kd, want
     ms = cuda_ms(torch, lambda: ops.lattice_decode_batched(
         words, x, u, s_s, q=q, mode="coords", bucket=bucket))
+    dms, reps = device_ms(torch, lambda: ops.lattice_decode_batched(
+        words, x, u, s_s, q=q, mode="coords", bucket=bucket))
     step = max(bucket, (SLICE // senders) // bucket * bucket)
 
     def plain():
@@ -478,7 +622,8 @@ def batched_decode_check(torch, x, u, q: int, senders: int, bucket: int,
                   + senders * nb * 4, senders * n_pad * 4)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 library_ms=None, max_abs_err=err,
-                shape=f"S={senders}, N={n_pad}, q={q}, coords")
+                shape=f"S={senders}, N={n_pad}, q={q}, coords",
+                device_ms=dms, reps=reps, share_of_bound=b / dms)
 
 
 def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
@@ -525,6 +670,7 @@ def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
         cases += 1
     torch.cuda.synchronize()
     ms = cuda_ms(torch, lambda: ops.fwht(xb), reps=20)
+    dms, reps = device_ms(torch, lambda: ops.fwht(xb))
 
     def plain_fwht():
         for r0 in range(0, nb, rows):
@@ -551,6 +697,7 @@ def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
     return dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                 library_ms=lib, max_abs_err=err,
                 shape=f"({nb}, {bucket}) f32", share_of_bound=b / ms,
+                device_ms=dms, reps=reps, device_share_of_bound=b / dms,
                 copy_ms=copy_ms, bf16_ms=ms_bf16, bf16_bound_ms=b16,
                 bf16_share_of_bound=b16 / ms_bf16, bf16_copy_ms=copy_bf16,
                 bitwise_cases=cases)
@@ -1378,52 +1525,77 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
     return out
 
 
-def train_kernel_checks(torch, seed: int) -> None:
-    """The encode and the single decode at the training path's largest
-    shape, the embedding's first recursive-halving hop (67,944,448
-    coordinates, q = 16, per-bucket sides, coords mode): bitwise against
-    their plain versions on the first 2^24 coordinates, timed at the full
-    shape."""
+def hop_kernel_check(torch, g, n: int, bucket: int,
+                     small: bool = False) -> dict:
+    """The encode and the single decode as a collective's hop launches them
+    (q = 16, per-bucket sides, words alone, then coords mode) at ``n``
+    coordinates: bitwise against their plain versions on the first and
+    the last 2^24 coordinates, timed at the full shape by one call
+    (``ms``) and by a run of back-to-back calls (``device_ms``), each
+    beside its bound.  ``small`` adds ``graph_ms`` (the calls replayed
+    from a CUDA graph, without the host's launch work) and the wrappers'
+    ``host_us_per_call``."""
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
-    n, bucket, q, bits = TRAIN_HOP_N, 4096, 16, 4
+    q, bits = 16, 4
     nb = n // bucket
-    g = torch.Generator(device=dev).manual_seed(seed + 17)
     x = torch.randn(n, generator=g, device=dev) * 1e-3
     u = torch.rand(n, generator=g, device=dev) - 0.5
     sides = (2.0 / 15) * (0.5 + torch.rand(nb, generator=g, device=dev))
-    L_ = min(SLICE, n)
-    words = ops.lattice_encode(x, u, sides, q=q, bucket=bucket)
-    torch.cuda.synchronize()
-    want = ref.lattice_encode_ref(x[:L_], u[:L_], sides[:L_ // bucket], q=q,
-                                  bits=bits, bucket=bucket)
-    check(torch.equal(words[:L_ // 8], want),
-          "lattice_encode disagrees with its plain version at the training "
-          "hop's shape")
-    ms_e = cuda_ms(torch, lambda: ops.lattice_encode(x, u, sides, q=q,
-                                                     bucket=bucket))
     y = x + 0.01 * torch.randn(n, generator=g, device=dev) * 1e-3
-    k = ops.lattice_decode(words, y, u, sides, q=q, mode="coords",
-                           bucket=bucket)
+
+    def enc():
+        return ops.lattice_encode(x, u, sides, q=q, bucket=bucket)
+    words = enc()
+
+    def dec():
+        return ops.lattice_decode(words, y, u, sides, q=q, mode="coords",
+                                  bucket=bucket)
+    k = dec()
     torch.cuda.synchronize()
-    want_k = ref.lattice_decode_ref(words[:L_ // 8], y[:L_], u[:L_],
-                                    sides[:L_ // bucket], q=q, bits=bits,
-                                    n=L_, mode="coords", bucket=bucket)
-    check(torch.equal(k[:L_], want_k),
-          "lattice_decode disagrees with its plain version at the training "
-          "hop's shape")
-    ms_d = cuda_ms(torch, lambda: ops.lattice_decode(
-        words, y, u, sides, q=q, mode="coords", bucket=bucket))
-    be, bye = bound(n * (4 + 4 + bits / 8) + nb * 4, n * 4)
-    bd, byd = bound(n * (bits / 8 + 4 + 4 + 4) + nb * 4, n * 4)
-    say("kernel_check_train", shape=f"N={n}, q={q}, per-bucket sides",
-        lattice_encode=dict(ms=ms_e, bound_ms=be, bound_by=bye,
-                            max_abs_err=0.0),
-        lattice_decode=dict(ms=ms_d, bound_ms=bd, bound_by=byd,
-                            max_abs_err=0.0))
-    del x, u, y, words, k
+    for c0, c1 in ends(n):
+        sl = sides[c0 // bucket:c1 // bucket]
+        want = ref.lattice_encode_ref(x[c0:c1], u[c0:c1], sl, q=q, bits=bits,
+                                      bucket=bucket)
+        check(torch.equal(words[c0 // 8:c1 // 8], want),
+              f"lattice_encode disagrees with its plain version at n = {n} "
+              f"(coordinates {c0}:{c1})")
+        want_k = ref.lattice_decode_ref(words[c0 // 8:c1 // 8], y[c0:c1],
+                                        u[c0:c1], sl, q=q, bits=bits,
+                                        n=c1 - c0, mode="coords",
+                                        bucket=bucket)
+        check(torch.equal(k[c0:c1], want_k),
+              f"lattice_decode disagrees with its plain version at n = {n} "
+              f"(coordinates {c0}:{c1})")
+    del want, want_k, k
+    res = dict(n=n, bucket=bucket)
+    for name, fn, nbytes in (
+            ("lattice_encode", enc, n * (4 + 4 + bits / 8) + nb * 4),
+            ("lattice_decode", dec, n * (bits / 8 + 4 + 4 + 4) + nb * 4)):
+        b, by = bound(nbytes, n * 4)
+        dms, reps = device_ms(torch, fn)
+        r = dict(ms=cuda_ms(torch, fn), device_ms=dms, reps=reps,
+                 bound_ms=b, bound_by=by, share_of_bound=b / dms,
+                 max_abs_err=0.0)
+        if small:
+            r["graph_ms"] = graph_ms(torch, fn, reps)
+            r["host_us_per_call"] = host_us_per_call(torch, fn)
+        res[name] = r
+    del x, u, y, words, sides
     torch.cuda.empty_cache()
+    return res
+
+
+def train_kernel_checks(torch, seed: int) -> None:
+    """The encode and the single decode at the training path's largest
+    shape, the embedding's first recursive-halving hop (67,944,448
+    coordinates, bucket 4096; ``hop_kernel_check``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    r = hop_kernel_check(torch, g, TRAIN_HOP_N, 4096)
+    say("kernel_check_train", shape=f"N={r['n']}, q=16, per-bucket sides",
+        lattice_encode=r["lattice_encode"],
+        lattice_decode=r["lattice_decode"])
 
 
 def train_internvl2(seed: int) -> dict:
@@ -1780,57 +1952,20 @@ def train_tp_rank_main(torch, rank: int, world: int, seed: int,
 
 
 def tp_kernel_checks(torch, seed: int) -> None:
-    """The encode and the single decode at the TP phase's shapes: its
-    largest DP hop (the embedding's half at dp = 2, 33,972,224
-    coordinates, bucket 4096) and a replicated leaf's butterfly (wk,
-    114,688 coordinates, bucket 4096; a norm, gathered to 1,024 for the DP
-    shards, one bucket of 1,024), q = 16,
-    coords mode: bitwise against their plain versions (on the first 2^24
-    coordinates), timed at the full shape, each beside its bound."""
-    from repro_torch.kernels import ops, ref
-
-    dev = torch.device("cuda")
-    q, bits = 16, 4
+    """The encode and the single decode at the TP phase's shapes
+    (``hop_kernel_check``): its largest DP hop (the embedding's half at
+    dp = 2, 33,972,224 coordinates, bucket 4096) and a replicated leaf's
+    butterfly (wk, 114,688 coordinates, bucket 4096; a norm, gathered to
+    1,024 for the DP shards, one bucket of 1,024); the butterflies also
+    from a CUDA graph and with the host's microseconds per call."""
     res = {}
     for label, n, bucket in (("dp_hop", TP_HOP_N, 4096),
                              ("tp_butterfly_wk", 896 * 128, 4096),
                              ("tp_butterfly_norm", 1024, 1024)):
-        nb = n // bucket
-        g = torch.Generator(device=dev).manual_seed(seed + 23)
-        x = torch.randn(n, generator=g, device=dev) * 1e-3
-        u = torch.rand(n, generator=g, device=dev) - 0.5
-        sides = (2.0 / 15) * (0.5 + torch.rand(nb, generator=g, device=dev))
-        L_ = min(SLICE, n)
-        words = ops.lattice_encode(x, u, sides, q=q, bucket=bucket)
-        torch.cuda.synchronize()
-        want = ref.lattice_encode_ref(x[:L_], u[:L_], sides[:L_ // bucket],
-                                      q=q, bits=bits, bucket=bucket)
-        check(torch.equal(words[:L_ // 8], want),
-              f"lattice_encode disagrees with its plain version at {label}")
-        ms_e = cuda_ms(torch, lambda: ops.lattice_encode(
-            x, u, sides, q=q, bucket=bucket))
-        y = x + 0.01 * torch.randn(n, generator=g, device=dev) * 1e-3
-        k = ops.lattice_decode(words, y, u, sides, q=q, mode="coords",
-                               bucket=bucket)
-        torch.cuda.synchronize()
-        want_k = ref.lattice_decode_ref(words[:L_ // 8], y[:L_], u[:L_],
-                                        sides[:L_ // bucket], q=q, bits=bits,
-                                        n=L_, mode="coords", bucket=bucket)
-        check(torch.equal(k[:L_], want_k),
-              f"lattice_decode disagrees with its plain version at {label}")
-        ms_d = cuda_ms(torch, lambda: ops.lattice_decode(
-            words, y, u, sides, q=q, mode="coords", bucket=bucket))
-        be, bye = bound(n * (4 + 4 + bits / 8) + nb * 4, n * 4)
-        bd, byd = bound(n * (bits / 8 + 4 + 4 + 4) + nb * 4, n * 4)
-        res[label] = dict(
-            n=n, bucket=bucket,
-            lattice_encode=dict(ms=ms_e, bound_ms=be, bound_by=bye,
-                                max_abs_err=0.0),
-            lattice_decode=dict(ms=ms_d, bound_ms=bd, bound_by=byd,
-                                max_abs_err=0.0))
-        del x, u, y, words, k
-    say("kernel_check_tp", q=q, shapes=res)
-    torch.cuda.empty_cache()
+        g = torch.Generator(device="cuda").manual_seed(seed + 23)
+        res[label] = hop_kernel_check(torch, g, n, bucket,
+                                      small=n < TP_HOP_N)
+    say("kernel_check_tp", q=16, shapes=res)
 
 
 def train_internvl2_tp(seed: int) -> dict:
@@ -2603,7 +2738,7 @@ def main() -> int:
                            spill_store_bytes=sum(spills))
     say("build", seconds=time.perf_counter() - t0, built=built, ptxas=ptxas)
     say("sass", flash_attention_wgmma=wgmma_sass(_build),
-        fwht=fwht_sass(_build))
+        fwht=fwht_sass(_build), **lattice_sass(_build))
 
     spec = wire.RoundSpec(round_id=1, d=FULL_D,
                           cfg=QSyncConfig(q=16, bucket=4096))

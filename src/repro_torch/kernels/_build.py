@@ -7,7 +7,8 @@ seconds), for ``sm_90a``, without fast math and without mul-add
 contraction (``-fmad=false``): the kernels copy the reference's IEEE
 division and separately rounded products and sums.  The libraries go to
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so a stale build is never loaded.  :func:`build`
+source, the shared headers (``csrc/*.cuh``) and the flags, so a stale
+build is never loaded.  :func:`build`
 starts one ``nvcc`` per missing source, all at once.
 
 ``LAUNCHES`` holds one plain integer per kernel: its wrapper adds one where
@@ -16,6 +17,7 @@ it launches the kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,6 +26,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from repro_torch.core import lattice as L
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -63,7 +67,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's hash
+    src = b"".join(p.read_bytes() for p in
+                   (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 
@@ -114,6 +120,22 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error "
                            f"{err}")
+
+
+@functools.cache
+def lattice_bits(q: int) -> int:
+    """``core.lattice.bits_for_q``, computed once per q: it goes through
+    numpy, microseconds a call that every launch would pay."""
+    return L.bits_for_q(q)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device`` (a device with
+    an index, as a CUDA tensor's is): ``torch.cuda.current_stream(device)
+    .cuda_stream`` without building a ``Stream`` object, which took 3.3 us
+    of a 23 us launch at 1,024 coordinates on an H100's host
+    (``scripts/lattice_kernels_ab.py``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_lattice_shape(kernel: str, q: int, bits: int, n: int) -> None:

@@ -38,15 +38,28 @@
 // anchor + dither (12 B with ref) once, S * 4 B written; 80 B per
 // coordinate at q = 16 and S = 16.
 //
-// Design: one thread per coordinate.  Every load of anchor, dither and
-// ref and every store is a coalesced 4-byte access across the warp; the
-// PER threads that share a word read the same address (one transaction).
-// The batched kernel loops over the senders with the anchor, dither and
-// ref of its coordinate held in registers (the TPU kernel's "anchor block
-// read once per tile").  No shared memory, no allocation; each launch goes
-// on the caller's stream.
-#include <cstdint>
-#include <cuda_runtime.h>
+// Design of the single decode (lattice_run.cuh): lane l of a warp
+// decodes 4 consecutive coordinates of each 128-coordinate step, so the
+// warp's loads of anchor, dither and ref and its stores of k or z are
+// contiguous 512-byte runs of 16-byte accesses, and the lane reads its 4
+// colors as one aligned unit of the payload (a byte at 2 bits, a
+// half-word at 4, a word at 8, two at 16): the warp's word loads are
+// contiguous too.  A warp issues the loads of 4 steps (512 coordinates)
+// before their arithmetic and reads a group's side once when the group
+// lies inside one bucket.  The grid is persistent (as many blocks as fit on
+// the card at once, each warp striding over groups); the last, partial
+// group takes guarded 4-byte accesses, and any pointer off a 16-byte
+// boundary (a caller's view) takes the same kernel instantiated with
+// 4-byte accesses.
+//
+// The batched kernel runs one thread per coordinate and loops over the
+// senders with the anchor, dither and ref of its coordinate held in
+// registers (the TPU kernel's "anchor block read once per tile"): every
+// load of anchor, dither and ref and every store is a coalesced 4-byte
+// access across the warp, and the PER threads that share a word read the
+// same address (one transaction).  No shared memory, no allocation; each
+// launch goes on the caller's stream.
+#include "lattice_run.cuh"
 
 namespace {
 
@@ -68,29 +81,75 @@ __device__ __forceinline__ float decode_point(int k, float uv, float sv,
   return z;
 }
 
-template <int BITS, bool COORDS, bool REF, bool AVG>
-__global__ void lattice_decode_kernel(
+// One group of 512 coordinates: lane `lane`'s 4 coordinates of each step.
+template <int BITS, int VEC, bool COORDS, bool REF, bool AVG, bool FULL,
+          bool ONE_SIDE>
+__device__ __forceinline__ void decode_group(
+    const uint32_t* __restrict__ words, const float* __restrict__ anchor,
+    const float* __restrict__ u, const float* __restrict__ ref,
+    const float* __restrict__ s, int s_shift, void* __restrict__ out,
+    int64_t n, uint32_t q, float avg_cnt, float recip, int64_t g,
+    int lane) {
+  using lattice_run::kIters;
+  using lattice_run::load4;
+  using lattice_run::store4;
+  using Out = std::conditional_t<COORDS, int32_t, float>;
+  const int64_t c0 = g * lattice_run::kGroup + 4 * lane;
+  const int64_t nw = (n * BITS + 31) / 32;
+  const float s_group = ONE_SIDE ? __ldg(s + (c0 >> s_shift)) : 0.f;
+  const uint32_t qm = q - 1u, half = q >> 1;
+  float av[kIters][4], uv[kIters][4], rv[kIters][4];
+  lattice_run::Bits<BITS> wb[kIters];
+  // every load of the group is in flight before the arithmetic below
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int64_t c = c0 + it * 128;
+    wb[it] = lattice_run::load_bits<BITS, VEC, FULL>(words, c >> 2, nw);
+    load4<VEC, FULL>(anchor + c, n - c, av[it]);
+    load4<VEC, FULL>(u + c, n - c, uv[it]);
+    if (REF) load4<VEC, FULL>(ref + c, n - c, rv[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int64_t c = c0 + it * 128;
+    Out ov[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float sv = ONE_SIDE ? s_group
+                       : (FULL || c + j < n) ? __ldg(s + ((c + j) >> s_shift))
+                                             : 1.f;
+      const uint32_t col = (uint32_t)(wb[it] >> (j * BITS)) & qm;
+      const float a = av[it][j];
+      const float r = REF ? rv[it][j] : 0.f;
+      const int k = decode_coord(col, REF ? __fsub_rn(a, r) : a, uv[it][j],
+                                 sv, qm, half);
+      if constexpr (COORDS) {
+        ov[j] = k;
+      } else {
+        float z = decode_point<REF>(k, uv[it][j], sv, r);
+        if (AVG) z = __fmul_rn(__fadd_rn(z, __fmul_rn(a, avg_cnt)), recip);
+        ov[j] = z;
+      }
+    }
+    store4<VEC, FULL>(static_cast<Out*>(out) + c, n - c, ov);
+  }
+}
+
+template <int BITS, int VEC, bool COORDS, bool REF, bool AVG>
+__global__ void __launch_bounds__(lattice_run::kThreads,
+                                  lattice_run::kMinBlocks<BITS, VEC>)
+lattice_decode_kernel(
     const uint32_t* __restrict__ words, const float* __restrict__ anchor,
     const float* __restrict__ u, const float* __restrict__ ref,
     const float* __restrict__ s, int s_shift, void* __restrict__ out,
     int64_t n, uint32_t q, float avg_cnt, float recip) {
-  constexpr int PER = 32 / BITS;
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
-  const float a = anchor[c];
-  const float uv = u[c];
-  const float rv = REF ? ref[c] : 0.f;
-  const float av = REF ? __fsub_rn(a, rv) : a;
-  const float sv = s[c >> s_shift];
-  const uint32_t col = (words[c / PER] >> ((int)(c % PER) * BITS)) & (q - 1u);
-  const int k = decode_coord(col, av, uv, sv, q - 1u, q >> 1);
-  if (COORDS) {
-    static_cast<int32_t*>(out)[c] = k;
-  } else {
-    float z = decode_point<REF>(k, uv, sv, rv);
-    if (AVG) z = __fmul_rn(__fadd_rn(z, __fmul_rn(a, avg_cnt)), recip);
-    static_cast<float*>(out)[c] = z;
-  }
+  lattice_run::for_each_group(n, s_shift, [&](auto full, auto one_side,
+                                              int64_t g, int lane) {
+    decode_group<BITS, VEC, COORDS, REF, AVG, decltype(full)::value,
+                 decltype(one_side)::value>(words, anchor, u, ref, s, s_shift,
+                                            out, n, q, avg_cnt, recip, g,
+                                            lane);
+  });
 }
 
 template <int BITS, bool COORDS, bool REF>
@@ -122,20 +181,27 @@ __global__ void lattice_decode_batched_kernel(
   }
 }
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the batched kernel's block
 
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-template <int BITS>
+template <int BITS, int VEC>
 void launch_one(const uint32_t* words, const float* anchor, const float* u,
                 const float* ref, const float* s, int s_shift, void* out,
                 int coords, int avg, float avg_cnt, float recip, int64_t n,
                 uint32_t q, cudaStream_t stream) {
-#define DECODE_ONE(C, R, A)                                                 \
-  lattice_decode_kernel<BITS, C, R, A><<<blocks_for(n), kThreads, 0, stream>>>( \
-      words, anchor, u, ref, s, s_shift, out, n, q, avg_cnt, recip)
+  // each instance's occupancy is looked up once, at its first launch
+#define DECODE_ONE(C, R, A)                                                \
+  do {                                                                     \
+    auto k = lattice_decode_kernel<BITS, VEC, C, R, A>;                   \
+    static int per_sm = 0;                                                 \
+    if (per_sm == 0) per_sm = lattice_run::blocks_per_sm(k);               \
+    k<<<lattice_run::grid(per_sm, n), lattice_run::kThreads, 0,           \
+        stream>>>(words, anchor, u, ref, s, s_shift, out, n, q, avg_cnt,  \
+                  recip);                                                  \
+  } while (0)
   if (coords && ref) DECODE_ONE(true, true, false);
   else if (coords) DECODE_ONE(true, false, false);
   else if (ref && avg) DECODE_ONE(false, true, true);
@@ -143,6 +209,20 @@ void launch_one(const uint32_t* words, const float* anchor, const float* u,
   else if (avg) DECODE_ONE(false, false, true);
   else DECODE_ONE(false, false, false);
 #undef DECODE_ONE
+}
+
+template <int BITS>
+void launch_one_bits(const uint32_t* words, const float* anchor,
+                     const float* u, const float* ref, const float* s,
+                     int s_shift, void* out, int coords, int avg,
+                     float avg_cnt, float recip, int64_t n, uint32_t q,
+                     cudaStream_t stream) {
+  if (lattice_run::aligned16(words, anchor, u, ref, out))
+    launch_one<BITS, 4>(words, anchor, u, ref, s, s_shift, out, coords, avg,
+                        avg_cnt, recip, n, q, stream);
+  else
+    launch_one<BITS, 1>(words, anchor, u, ref, s, s_shift, out, coords, avg,
+                        avg_cnt, recip, n, q, stream);
 }
 
 template <int BITS>
@@ -182,10 +262,10 @@ extern "C" int lattice_decode_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t uq = (uint32_t)q;
   switch (bits) {
-    case 2: launch_one<2>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
-    case 4: launch_one<4>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
-    case 8: launch_one<8>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
-    case 16: launch_one<16>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    case 2: launch_one_bits<2>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    case 4: launch_one_bits<4>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    case 8: launch_one_bits<8>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
+    case 16: launch_one_bits<16>(words, anchor, u, ref, s, s_shift, out, coords, avg, avg_cnt, recip, n, uq, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

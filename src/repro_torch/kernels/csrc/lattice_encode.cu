@@ -21,65 +21,116 @@
 // when asked; the per-bucket side is 4 B per bucket.  A few integer and one
 // division per coordinate is far below the compute roof.
 //
-// Design: one thread per coordinate, so every load of x, u, anchor and
-// every store of k is a coalesced 4-byte access across the warp.  The
-// 32/BITS threads that share a word OR their shifted colors together with
-// warp shuffles (log2(32/BITS) steps) and the first of them stores the
-// word; a warp therefore writes BITS consecutive words.  No shared memory,
-// no allocation; the launch goes on the caller's stream.
-#include <cstdint>
-#include <cuda_runtime.h>
+// Design (lattice_run.cuh): lane l of a warp encodes 4 consecutive
+// coordinates of each 128-coordinate step, so the warp's loads of x, u and
+// the anchor and its stores of coords are contiguous 512-byte runs of
+// 16-byte accesses, and the lane's 4 colors are one aligned unit of the
+// payload (a byte at 2 bits, a half-word at 4, a word at 8, two at 16)
+// that it writes whole: the warp's word stores are contiguous too, and no
+// colors cross lanes.  A warp issues the loads of 4 steps (512
+// coordinates) before their arithmetic and reads a group's side once when
+// the group lies inside one bucket.  The grid is persistent (as many
+// blocks as fit on the card at once, each warp striding over groups); the
+// last, partial group takes guarded 4-byte accesses, and any pointer off a
+// 16-byte boundary (a caller's view) takes the same kernel instantiated
+// with 4-byte accesses.  No shared memory, no allocation; the launch goes
+// on the caller's stream.
+#include "lattice_run.cuh"
 
 namespace {
 
-template <int BITS, bool ANCHOR, bool COORDS>
-__global__ void lattice_encode_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ anchor,
-                                      const float* __restrict__ u,
-                                      const float* __restrict__ s, int s_shift,
-                                      uint32_t* __restrict__ words,
-                                      int32_t* __restrict__ coords,
-                                      int64_t n, uint32_t qmask) {
-  constexpr int PER = 32 / BITS;
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t color = 0;
-  if (c < n) {
-    float xv = x[c];
-    if (ANCHOR) xv = __fsub_rn(xv, anchor[c]);
-    const float t = __fsub_rn(__fdiv_rn(xv, s[c >> s_shift]), u[c]);
-    const int k = __float2int_rn(t);
-    if (COORDS) coords[c] = k;
-    color = (uint32_t)k & qmask;
-  }
-  // every lane of the warp takes part in the shuffles, in range or not
-  const int lane = threadIdx.x & 31;
-  uint32_t v = color << ((lane % PER) * BITS);
+using lattice_run::kIters;
+using lattice_run::kThreads;
+
+// One group of 512 coordinates: lane `lane`'s 4 coordinates of each step.
+template <int BITS, int VEC, bool ANCHOR, bool COORDS, bool FULL,
+          bool ONE_SIDE>
+__device__ __forceinline__ void encode_group(
+    const float* __restrict__ x, const float* __restrict__ anchor,
+    const float* __restrict__ u, const float* __restrict__ s, int s_shift,
+    uint32_t* __restrict__ words, int32_t* __restrict__ coords, int64_t n,
+    uint32_t qmask, int64_t g, int lane) {
+  using lattice_run::load4;
+  using lattice_run::store4;
+  const int64_t c0 = g * lattice_run::kGroup + 4 * lane;
+  const int64_t nw = (n * BITS + 31) / 32;
+  const float s_group = ONE_SIDE ? __ldg(s + (c0 >> s_shift)) : 0.f;
+  float xv[kIters][4], av[kIters][4], uv[kIters][4];
+  // every load of the group is in flight before the arithmetic below
 #pragma unroll
-  for (int off = 1; off < PER; off <<= 1) v |= __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane % PER == 0) {
-    const int64_t w = c / PER;
-    if (w * PER < n) words[w] = v;
+  for (int it = 0; it < kIters; ++it) {
+    const int64_t c = c0 + it * 128;
+    load4<VEC, FULL>(x + c, n - c, xv[it]);
+    if (ANCHOR) load4<VEC, FULL>(anchor + c, n - c, av[it]);
+    load4<VEC, FULL>(u + c, n - c, uv[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int64_t c = c0 + it * 128;
+    int32_t kv[4];
+    lattice_run::Bits<BITS> b = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = FULL || c + j < n;
+      const float sv =
+          ONE_SIDE ? s_group : (in ? __ldg(s + ((c + j) >> s_shift)) : 1.f);
+      const float t = ANCHOR ? __fsub_rn(xv[it][j], av[it][j]) : xv[it][j];
+      kv[j] = __float2int_rn(__fsub_rn(__fdiv_rn(t, sv), uv[it][j]));
+      // lanes past n keep color 0
+      if (in) b |= (lattice_run::Bits<BITS>)((uint32_t)kv[j] & qmask)
+                   << (j * BITS);
+    }
+    if (COORDS) store4<VEC, FULL>(coords + c, n - c, kv);
+    lattice_run::store_bits<BITS, VEC, FULL>(words, c >> 2, nw, b);
   }
 }
 
-template <int BITS>
+template <int BITS, int VEC, bool ANCHOR, bool COORDS>
+__global__ void __launch_bounds__(kThreads, lattice_run::kMinBlocks<BITS, VEC>)
+lattice_encode_kernel(const float* __restrict__ x,
+                      const float* __restrict__ anchor,
+                      const float* __restrict__ u,
+                      const float* __restrict__ s, int s_shift,
+                      uint32_t* __restrict__ words,
+                      int32_t* __restrict__ coords, int64_t n,
+                      uint32_t qmask) {
+  lattice_run::for_each_group(n, s_shift, [&](auto full, auto one_side,
+                                              int64_t g, int lane) {
+    encode_group<BITS, VEC, ANCHOR, COORDS, decltype(full)::value,
+                 decltype(one_side)::value>(x, anchor, u, s, s_shift, words,
+                                            coords, n, qmask, g, lane);
+  });
+}
+
+template <int BITS, int VEC>
 void launch(const float* x, const float* anchor, const float* u,
             const float* s, int s_shift, uint32_t* words, int32_t* coords,
             int64_t n, uint32_t qmask, cudaStream_t stream) {
-  const int threads = 256;  // a multiple of 32: whole warps share words
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  if (anchor && coords)
-    lattice_encode_kernel<BITS, true, true><<<blocks, threads, 0, stream>>>(
-        x, anchor, u, s, s_shift, words, coords, n, qmask);
-  else if (anchor)
-    lattice_encode_kernel<BITS, true, false><<<blocks, threads, 0, stream>>>(
-        x, anchor, u, s, s_shift, words, coords, n, qmask);
-  else if (coords)
-    lattice_encode_kernel<BITS, false, true><<<blocks, threads, 0, stream>>>(
-        x, anchor, u, s, s_shift, words, coords, n, qmask);
+  // each instance's occupancy is looked up once, at its first launch
+#define ENCODE(A, C)                                                       \
+  do {                                                                     \
+    auto k = lattice_encode_kernel<BITS, VEC, A, C>;                      \
+    static int per_sm = 0;                                                 \
+    if (per_sm == 0) per_sm = lattice_run::blocks_per_sm(k);               \
+    k<<<lattice_run::grid(per_sm, n), kThreads, 0, stream>>>(              \
+        x, anchor, u, s, s_shift, words, coords, n, qmask);               \
+  } while (0)
+  if (anchor && coords) ENCODE(true, true);
+  else if (anchor) ENCODE(true, false);
+  else if (coords) ENCODE(false, true);
+  else ENCODE(false, false);
+#undef ENCODE
+}
+
+template <int BITS>
+void launch_bits(const float* x, const float* anchor, const float* u,
+                 const float* s, int s_shift, uint32_t* words,
+                 int32_t* coords, int64_t n, uint32_t qmask,
+                 cudaStream_t stream) {
+  if (lattice_run::aligned16(x, anchor, u, words, coords))
+    launch<BITS, 4>(x, anchor, u, s, s_shift, words, coords, n, qmask, stream);
   else
-    lattice_encode_kernel<BITS, false, false><<<blocks, threads, 0, stream>>>(
-        x, anchor, u, s, s_shift, words, coords, n, qmask);
+    launch<BITS, 1>(x, anchor, u, s, s_shift, words, coords, n, qmask, stream);
 }
 
 }  // namespace
@@ -97,10 +148,10 @@ extern "C" int lattice_encode_launch(const float* x, const float* anchor,
   const uint32_t qmask = (uint32_t)q - 1u;
   cudaStream_t st = (cudaStream_t)stream;
   switch (bits) {
-    case 2: launch<2>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
-    case 4: launch<4>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
-    case 8: launch<8>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
-    case 16: launch<16>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
+    case 2: launch_bits<2>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
+    case 4: launch_bits<4>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
+    case 8: launch_bits<8>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
+    case 16: launch_bits<16>(x, anchor, u, s, s_shift, words, coords, n, qmask, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

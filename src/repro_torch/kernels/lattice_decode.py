@@ -16,6 +16,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -33,7 +34,9 @@ def _check_words(words: torch.Tensor, n: int, bits: int) -> None:
                          f"{n} coordinates at {bits} bits")
 
 
+@functools.cache
 def _single_launcher():
+    """The single decode's C launcher, loaded and typed once."""
     fn = _build.load("lattice_decode").lattice_decode_launch
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _I64, _I, _I,
                    _P]
@@ -57,7 +60,7 @@ def lattice_decode_cuda(words: torch.Tensor, anchor: torch.Tensor,
         raise ValueError(f"mode must be 'coords' or 'point', got {mode!r}")
     if avg_cnt is not None and mode != "point":
         raise ValueError("avg_cnt needs mode='point'")
-    bits = L.bits_for_q(q)
+    bits = _build.lattice_bits(q)
     dev = anchor.device
     n = anchor.numel()
     _build.check_lattice_shape("decode", q, bits, n)
@@ -79,7 +82,7 @@ def lattice_decode_cuda(words: torch.Tensor, anchor: torch.Tensor,
     recip = 1.0 / (avg_cnt + 1) if avg else 1.0
     out = torch.empty(n, device=dev,
                       dtype=torch.int32 if coords else torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev)
     err = _single_launcher()(
         words.data_ptr(), anchor.data_ptr(), u.data_ptr(),
         ref.data_ptr() if ref is not None else None, sides.data_ptr(), shift,
@@ -90,7 +93,9 @@ def lattice_decode_cuda(words: torch.Tensor, anchor: torch.Tensor,
     return out
 
 
+@functools.cache
 def _launcher():
+    """The batched decode's C launcher, loaded and typed once."""
     fn = _build.load("lattice_decode").lattice_decode_batched_launch
     fn.argtypes = [_P, _I64, _P, _P, _P, _P, _I64, _I, _P, _I, _I64, _I64,
                    _I, _I, _P]
@@ -112,7 +117,7 @@ def lattice_decode_batched_cuda(words: torch.Tensor, anchor: torch.Tensor,
     ``ref`` (n,) is the anchor every sender subtracted before encoding."""
     if mode not in ("coords", "point"):
         raise ValueError(f"mode must be 'coords' or 'point', got {mode!r}")
-    bits = L.bits_for_q(q)
+    bits = _build.lattice_bits(q)
     dev = anchor.device
     n = anchor.numel()
     _build.check_lattice_shape("decode", q, bits, n)
@@ -131,7 +136,7 @@ def lattice_decode_batched_cuda(words: torch.Tensor, anchor: torch.Tensor,
     coords = mode == "coords"
     out = torch.empty((senders, n), device=dev,
                       dtype=torch.int32 if coords else torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev)
     err = _launcher()(
         words.data_ptr(), words.shape[1], anchor.data_ptr(), u.data_ptr(),
         ref.data_ptr() if ref is not None else None, sides.data_ptr(), s_row,

@@ -8,6 +8,7 @@ plain torch version is :func:`repro_torch.kernels.ref.lattice_encode_ref`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -16,13 +17,15 @@ from repro_torch.core import lattice as L
 from repro_torch.kernels import _build
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# the launch covers n coordinates with 256-thread blocks in a 1-D grid of
-# at most 2^31 - 1 blocks; inside, every index is int64, so n may pass 2^31
-_THREADS = 256
-MAX_N = ((1 << 31) - 1) * _THREADS
+# the launch is a persistent grid striding over runs of 4 words with int64
+# indices, so the grid does not bound n; 2^60 keeps every byte offset of
+# the 4-byte streams (4 n) inside int64
+MAX_N = 1 << 60
 
 
+@functools.cache
 def _launcher():
+    """The C launcher, loaded and typed once."""
     fn = _build.load("lattice_encode").lattice_encode_launch
     fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I64, _I, _I, _P]
     fn.restype = _I
@@ -39,7 +42,7 @@ def lattice_encode_cuda(x: torch.Tensor, u: torch.Tensor, s,
     (nb,) with ``bucket``.  Returns the packed words (int32 bit view,
     ``packed_len(n, bits)`` of them), plus the int32 coordinates (n,) when
     ``return_coords``."""
-    bits = L.bits_for_q(q)
+    bits = _build.lattice_bits(q)
     dev = x.device
     n = x.numel()
     _build.check_lattice_shape("encode", q, bits, n)
@@ -54,7 +57,7 @@ def lattice_encode_cuda(x: torch.Tensor, u: torch.Tensor, s,
     words = torch.empty(L.packed_len(n, bits), dtype=torch.int32, device=dev)
     coords = (torch.empty(n, dtype=torch.int32, device=dev)
               if return_coords else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev)
     err = _launcher()(
         x.data_ptr(), anchor.data_ptr() if anchor is not None else None,
         u.data_ptr(), sides.data_ptr(), shift, words.data_ptr(),

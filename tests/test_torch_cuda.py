@@ -122,6 +122,114 @@ def test_decode_single_matches_plain(cuda, q):
                                           err_msg=f"{mode} {avg}")
 
 
+# n of the run-layout tests: below one run, one past it, runs of 4 words
+# (4 * 32/bits coordinates) less or more one, as few as a block holds and
+# more than the persistent grid covers in one stride, and 5003
+RUN_N = (32, 33, (5, -1), (5, 1), (131075, -1), (131075, 1), 5003)
+
+
+def _run_n(q, spec):
+    """n of a RUN_N entry at q: a count, or (runs, delta)."""
+    if isinstance(spec, int):
+        return spec
+    runs, delta = spec
+    return 4 * (32 // TL.bits_for_q(q)) * runs + delta
+
+
+def _card_sides(sides, n):
+    """(s, bucket) forms of sides drawn per 256-coordinate bucket: scalar,
+    per-coordinate, per-bucket of 256 and of 8 (smaller than a 2-bit
+    thread's run of 64)."""
+    return (("scalar", float(sides[0].item()), None),
+            ("coord", sides.repeat_interleave(256)[:n].contiguous(), None),
+            ("bucket256", sides, 256),
+            ("bucket8", sides.repeat_interleave(32)[:-(-n // 8)].contiguous(),
+             8))
+
+
+def _on_card(a, cuda, misaligned):
+    """a (numpy) on the card, as a view one element past a 16-byte
+    boundary when ``misaligned``."""
+    t = _t(a, cuda)
+    if not misaligned:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    buf[1:] = t
+    v = buf[1:]
+    assert v.data_ptr() % 16 != 0
+    return v
+
+
+@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+@pytest.mark.parametrize("n_spec", RUN_N, ids=str)
+def test_encode_runs_match_plain(cuda, q, n_spec):
+    """The encode against its plain version at n around whole runs, for
+    every form of sides, anchored or not, with and without coords, on
+    aligned tensors and on views off a 16-byte boundary; one launch a
+    call."""
+    n = _run_n(q, n_spec)
+    bits = TL.bits_for_q(q)
+    x, u, a, sides = _inputs(n, 256, q + n)
+    sides_d = _t(sides, cuda)
+    for misaligned in (False, True):
+        xd, ud, ad = (_on_card(v, cuda, misaligned) for v in (x, u, a))
+        for kind, s, b in _card_sides(sides_d, n):
+            for anchor in (None, ad):
+                want_w, want_k = TRef.lattice_encode_ref(
+                    xd, ud, s, q=q, bits=bits, return_coords=True,
+                    anchor=anchor, bucket=b)
+                for coords in (False, True):
+                    before = _build.LAUNCHES["lattice_encode"]
+                    got = TK.lattice_encode(xd, ud, s, q=q,
+                                            return_coords=coords,
+                                            anchor=anchor, bucket=b)
+                    torch.cuda.synchronize()
+                    assert _build.LAUNCHES["lattice_encode"] == before + 1
+                    w, k = got if coords else (got, None)
+                    what = (f"n={n} {kind} anchored={anchor is not None} "
+                            f"misaligned={misaligned}")
+                    assert torch.equal(w, want_w), what
+                    if coords:
+                        assert torch.equal(k, want_k), what
+
+
+@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+@pytest.mark.parametrize("n_spec", RUN_N, ids=str)
+def test_decode_single_runs_match_plain(cuda, q, n_spec):
+    """The single decode against its plain version at n around whole runs,
+    in every mode (coords, coords with ref, points with ref and the
+    running-average epilogue), for every form of sides, on aligned tensors
+    and on views off a 16-byte boundary (words, anchor, dither, ref);
+    bitwise, one launch a call."""
+    n = _run_n(q, n_spec)
+    bits = TL.bits_for_q(q)
+    rng = np.random.RandomState(q + n + 1)
+    _, u, a, sides = _inputs(n, 256, q + n + 1)
+    words = rng.randint(0, 1 << 32, TL.packed_len(n, bits),
+                        dtype=np.uint64).astype(np.uint32).view(np.int32)
+    ref = (0.25 * a).astype(np.float32)
+    sides_d = _t(sides, cuda)
+    for misaligned in (False, True):
+        wd, ud, ad, rd = (_on_card(v, cuda, misaligned)
+                          for v in (words, u, a, ref))
+        for kind, s, b in _card_sides(sides_d, n):
+            for mode, r, avg in (("coords", None, None), ("coords", rd, None),
+                                 ("point", None, None), ("point", rd, None),
+                                 ("point", None, 3), ("point", rd, 1)):
+                want = TRef.lattice_decode_ref(
+                    wd, ad, ud, s, q=q, bits=bits, n=n, avg_cnt=avg,
+                    mode=mode, ref=r, bucket=b)
+                before = _build.LAUNCHES["lattice_decode"]
+                got = TK.lattice_decode(wd, ad, ud, s, q=q, avg_cnt=avg,
+                                        mode=mode, ref=r, bucket=b)
+                torch.cuda.synchronize()
+                assert _build.LAUNCHES["lattice_decode"] == before + 1
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (
+                    f"n={n} {kind} {mode} ref={r is not None} avg={avg} "
+                    f"misaligned={misaligned}")
+
+
 def test_decode_single_raises_outside_the_rules(cuda):
     x = torch.zeros(64, device=cuda)
     w = torch.zeros(8, dtype=torch.int32, device=cuda)

@@ -39,13 +39,25 @@ def _side_forms(kind, sides, n, bucket):
     return jnp.asarray(per), _t(sides), bucket        # per-bucket
 
 
+# n past whole runs of 4 words, where the CUDA kernels take their guarded
+# tail (a run is 32, 64, 16 or 8 coordinates at 4, 2, 8 or 16 bits)
+TAIL_N = (33, 4095, 4097)
+
+
+def _cases(base, tails):
+    """Parametrize cases: ``base`` at n = 1000 under their own ids, then
+    ``tails`` at every n of TAIL_N, with ``-n<N>`` in their ids."""
+    cases = [pytest.param(*c, 1000, id="-".join(map(str, c))) for c in base]
+    return cases + [pytest.param(*c, n, id="-".join(map(str, (*c, f"n{n}"))))
+                    for n in TAIL_N for c in tails]
+
+
 @pytest.mark.parametrize("q", [4, 16, 256])
-@pytest.mark.parametrize("kind,anchored", [("scalar", False),
-                                           ("coord", True),
-                                           ("bucket", True),
-                                           ("bucket", False)])
-def test_lattice_encode_bitwise(q, kind, anchored):
-    n, bucket = 1000, 128
+@pytest.mark.parametrize("kind,anchored,n", _cases(
+    [("scalar", False), ("coord", True), ("bucket", True), ("bucket", False)],
+    [("bucket", True), ("scalar", False)]))
+def test_lattice_encode_bitwise(q, kind, anchored, n):
+    bucket = 128
     x, u, a, sides = _enc_inputs(n, bucket, q)
     js, ts, tb = _side_forms(kind, sides, n, bucket)
     jw, jk = JK.lattice_encode(jnp.asarray(x), jnp.asarray(u), js, q=q,
@@ -178,15 +190,18 @@ def test_kernel_wrappers_reject_what_no_kernel_takes():
 
 
 @pytest.mark.parametrize("q", [4, 16, 256])
-@pytest.mark.parametrize("kind", ["scalar", "coord", "bucket"])
-def test_lattice_decode_single(q, kind):
+@pytest.mark.parametrize("kind,n", _cases(
+    [("scalar",), ("coord",), ("bucket",)], [("bucket",), ("coord",)]))
+def test_lattice_decode_single(q, kind, n):
     """The single-payload decode against the reference's (its Pallas
     kernel in interpret mode): coords bitwise; points, with ``ref`` and the
     running-average epilogue, within 2 ulp of the largest term summed,
     because the reference's compiled kernel may fuse ``(k+u)*s + ref`` and
     ``z + anchor*avg_cnt`` into fused multiply-adds where the port rounds
-    each step (the CUDA kernel rounds as the plain version does)."""
-    n, bucket = 1000, 128
+    each step (the CUDA kernel rounds as the plain version does).  The n
+    past whole runs (``TAIL_N``) are those at which the CUDA kernel takes
+    its guarded tail."""
+    bucket = 128
     x, u, a, sides = _enc_inputs(n, bucket, q + 3)
     js, ts, tb = _side_forms(kind, sides, n, bucket)
     bits = TL.bits_for_q(q)

@@ -291,9 +291,10 @@ def test_fleet_encode_equals_separate_client_encodes(rotate, anchored):
 
 def test_encode_launch_takes_a_fleet_past_2_31_and_refuses_past_its_grid():
     """The fleet encoder hands the encode kernel S x padded coordinates in
-    one launch; the kernel indexes in int64, so its wrapper takes n past
-    2^31 and refuses only what its one-dimensional grid cannot cover
-    (checked before any pointer is touched, on meta tensors)."""
+    one launch; the kernel's persistent grid strides over runs with int64
+    indices, so its wrapper takes n past 2^31 and refuses only what would
+    overflow its byte offsets (checked before any pointer is touched, on
+    meta tensors)."""
     from repro_torch.kernels import lattice_encode as LE
 
     assert LE.MAX_N > 8 * 277_848_064 > 1 << 31
