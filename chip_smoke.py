@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's aggregation round, quantized collectives,
-FSDP training, multi-round service, aggregation tree, continuous-round
-engine, flash attention and the paper's algorithms on one CUDA card.
+FSDP and TP training of every model family, multi-round service,
+aggregation tree, continuous-round engine, flash attention and the
+paper's algorithms on one CUDA card.
 
     python3 chip_smoke.py [--seed N]   # d = 277,845,504; 16 clients; 4 ranks
 
@@ -85,6 +86,32 @@ nothing of the JAX package.  The script
    against their plain versions at the phase's largest DP hop
    (33,972,224 coordinates) and at a butterfly's shapes (there also timed
    from a CUDA graph, and the wrappers' host microseconds per call);
+6c. trains granite-moe-1b-a400m at full width and depth (24 layers,
+   d_model 1,024, 32 experts of d_ff 512, top-8, capacity factor 1.25,
+   vocab 49,155; 1,384,126,464 parameters) on the (dp 2, tp 2) mesh:
+   sequence parallel (each TP rank routes 2,048 of its DP rank's 4,096
+   tokens), 16 experts a TP rank behind two tiled all-to-alls a layer,
+   the replicated leaves' gradients (the router's among them) psummed
+   over TP through the quantized butterfly, otherwise as phase 6b, 3
+   steps, no checkpoint.  Checks: a finite loss and ``aux`` on every rank
+   at every step; the replicated leaves bitwise equal on the two TP ranks
+   after every step; the bytes == the wire accounting; launches == DP
+   syncs x hops + TP butterflies x rounds, counted from the metas; layer
+   0's ``router`` TP psum of step 0 again on the CPU, bitwise; step 0's
+   first all-to-all against the host's permutation of every TP rank's
+   rows, bitwise.  Prints each step's wall, gather, DP sync, TP sync and
+   SP-and-all-to-all times, loss, aux, peak memory, and the tokens each
+   expert dropped at capacity in step 0;
+6d. trains the other families at full width, each with the checks of
+   6c's path (finite losses, bytes, launches == syncs x hops (+
+   butterflies x rounds)): mamba2-1.3b (d_model 2,048, state 128, depth
+   cut from 48 to 8 layers) for 2 steps and recurrentgemma-9b (d_model
+   4,096, lru_width 4,096, window 2,048, vocab 256,000, depth cut from 38
+   to 3 layers, one scanned unit; bf16 optimizer moments) for 1 step,
+   both on the (2, 2) mesh with SP at 4,096 tokens; then whisper-small
+   at full width and depth (12 + 12 layers, 1,500 stub frames, 448
+   decoder tokens) over four DP ranks, one loss and backward through
+   ``make_encdec_loss_fn`` with every leaf's quantized sync;
 7. runs the anchored multi-round service (``agg.service``) lockstep for
    three rounds at d = 277,845,504 (q = 16, bucket = 4096, y0 = 0.25),
    warm-started at ``base``; client i of round r sends
@@ -144,7 +171,8 @@ nothing of the JAX package.  The script
 14. prints the ``kernels`` line, then the ``ok`` line last.
 
 Every count of kernel launches is set to 0 just before each main path
-(rounds A and B; each rank's collectives; each rank's training runs; the
+(rounds A and B; each rank's collectives; each rank's training runs,
+each family's among them; the
 service, the tree and the engine phases; the bf16 and the f32 attention
 paths; the paper-algorithms phase) and read just after it; a kernel of a
 path that was not launched there fails the run, and the ``kernels`` line
@@ -156,6 +184,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import shutil
 import dataclasses
 import json
 import math
@@ -182,6 +211,13 @@ TRAIN_SEQ = 4096                 # train_4k's sequence (one per rank)
 TRAIN_HOP_N = 67_944_448         # the embedding's first RH hop (internvl2-1b)
 TP_MESH = (2, 2)                 # (dp, tp) of the TP phase, one card
 TRAIN_TP_STEPS = 3               # steps of the TP phase
+MOE_ARCH = "granite-moe-1b-a400m"  # the MoE phase's model (full size)
+MOE_STEPS = 3                    # steps of the MoE phase
+FAMILY_RUNS = (                  # (arch, layers, steps, optimizer state)
+    ("mamba2-1.3b", 8, 2, "float32"),
+    ("recurrentgemma-9b", 3, 1, "bfloat16"),
+)
+WHISPER_DEC_SEQ = 448            # whisper-small's decoder tokens
 TP_HOP_N = 33_972_224            # the TP phase's largest DP hop (embedding)
 SERVICE_CLIENTS = 8              # clients per service round
 TREE_FANOUT = 4                  # edge tiers of the tree phase
@@ -1132,6 +1168,10 @@ def _rank_entry(main, rank: int, world: int, port: int, args: tuple,
         # the first CUDA call); the training phase's serial == prefetch
         # check needs it
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        # four ranks share the card: segments that grow in place leave
+        # less of it reserved and unused (recurrentgemma's phase needs it)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
         import torch
         import torch.distributed as dist
         torch.cuda.set_device(0)
@@ -1602,7 +1642,6 @@ def train_internvl2(seed: int) -> dict:
     """The training phase: four ranks on the one card over gloo, the port's
     Trainer at internvl2-1b's full width and depth; returns the encode and
     single-decode launches of the main path, summed over the ranks."""
-    import shutil
     import tempfile
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1757,24 +1796,9 @@ def train_tp_rank_main(torch, rank: int, world: int, seed: int,
             capture["tp"].append((g.detach().clone(), out.detach().clone()))
         return out
 
-    patches = [(F, "_issue", reg.timed(F._issue, "gather_s")),
-               (F, "_gather_value", reg.timed(F._gather_value, "gather_s")),
-               (F, "_sync_grad", reg.timed(sync_recorded, "sync_s")),
-               (S, "_tp_quantized_psum", reg.timed(tpq_recorded,
-                                                   "tp_sync_s")),
-               (S, "_all_gather_cat", reg.timed(S._all_gather_cat,
-                                                "tp_act_s")),
-               (S, "_reduce_scatter", reg.timed(S._reduce_scatter,
-                                                "tp_act_s")),
-               (S, "_psum", reg.timed(S._psum, "tp_act_s")),
-               (LY, "_psum", reg.timed(LY._psum, "tp_act_s")),
-               (S, "pmax_tp", reg.timed(S.pmax_tp, "tp_act_s")),
-               (LY, "pmax_tp", reg.timed(LY.pmax_tp, "tp_act_s")),
-               (C, "_ppermute", reg.counted(C._ppermute)),
-               (C, "_all_gather", reg.counted(C._all_gather))]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-    for mod, name, fn in patches:
-        setattr(mod, name, fn)
+    instruments = contextlib.ExitStack()
+    instruments.enter_context(_patched(_tp_instruments(
+        reg, F, C, S, LY, sync=sync_recorded, tpq=tpq_recorded)))
 
     tr = TR.Trainer(cfg, ctx, opt, tc, data, extra_batch=extra, device=dev)
     tr._batch = reg.timed(tr._batch, "data_s")
@@ -1836,8 +1860,7 @@ def train_tp_rank_main(torch, rank: int, world: int, seed: int,
     path_s = time.perf_counter() - t_path
     launches = dict(_build.LAUNCHES)             # read just after the path
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for mod, name, fn in saved:
-        setattr(mod, name, fn)
+    instruments.close()
     del state0
     out = dict(rank=rank, mesh_index=[dp_idx, tp_idx], steps=steps,
                path_seconds=path_s, held_gb=held / 1e9, peak_gb=peak_gb,
@@ -1851,24 +1874,10 @@ def train_tp_rank_main(torch, rank: int, world: int, seed: int,
     check(len(steps) == TRAIN_TP_STEPS, f"rank {rank}: {len(steps)} steps")
     check(all(repl_equal), f"rank {rank}: the replicated leaves differ "
           f"across the TP ranks after steps {repl_equal}")
-    syncs = T.n_scan_steps(cfg) * len(tr.metas["layers"]) + \
-        len(tr.metas["top"])
-    butterflies = sum(T.n_scan_steps(cfg) if g == "layers" else 1
-                      for g, _ in repl)
-    hops = dp.bit_length() - 1
-    rounds = tp.bit_length() - 1
-    per_step = syncs * hops + butterflies * rounds
-    tp_bytes = 0
-    for g, k in repl:
-        # the psum runs on the gathered leaf, padded for the DP shards
-        n = S.leaf_gathered_len(tr.metas[g][k], ctx)
-        b = qcfg.bucket
-        while b > 32 and n < b:
-            b //= 2
-        qb = dataclasses.replace(qcfg, bucket=b)
-        tp_bytes += C.wire_bytes_butterfly(C.flat_size_padded(n, qb), tp,
-                                           qb) * \
-            (T.n_scan_steps(cfg) if g == "layers" else 1)
+    acct = _tp_accounting(C, S, T, tr, ctx)
+    syncs, hops = acct["dp_syncs"], acct["hops"]
+    butterflies, rounds = acct["tp_butterflies"], acct["rounds"]
+    per_step, tp_bytes = acct["per_step"], acct["tp_wire_bytes_step"]
     for st in steps:
         check(math.isfinite(st["loss"]) and math.isfinite(st["gnorm"]),
               f"rank {rank} step {st['step']}: loss {st['loss']}")
@@ -1973,7 +1982,6 @@ def train_internvl2_tp(seed: int) -> dict:
     tp 2) mesh, the port's Trainer at internvl2-1b's full width and depth;
     returns the encode and single-decode launches of the main path, summed
     over the ranks."""
-    import shutil
     import tempfile
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_")
@@ -2013,6 +2021,562 @@ def train_internvl2_tp(seed: int) -> dict:
             "wk_tp_psum_card_equals_cpu", "checkpoint_equals_params",
             "serial_step_s", "serial_equals_prefetch")} for r in ranks])
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: the MoE family, granite-moe-1b-a400m on the (dp 2, tp 2) mesh
+# ---------------------------------------------------------------------------
+
+def _tp_instruments(reg, F, C, S, LY, **fns) -> list:
+    """(module, name, replacement) of a TP training run's instruments: the
+    forward gathers, the DP syncs, the quantized TP psums and the SP
+    activation collectives (the all-to-alls among them) timed on the host
+    clock, and the bytes every ``ppermute`` and ``all_gather`` sends.
+    ``fns`` replaces the timed ``_sync_grad``, ``_tp_quantized_psum`` or
+    ``_all_to_all`` with a recording wrapper of it."""
+    return [(F, "_issue", reg.timed(F._issue, "gather_s")),
+            (F, "_gather_value", reg.timed(F._gather_value, "gather_s")),
+            (F, "_sync_grad", reg.timed(fns.get("sync", F._sync_grad),
+                                        "sync_s")),
+            (S, "_tp_quantized_psum", reg.timed(
+                fns.get("tpq", S._tp_quantized_psum), "tp_sync_s")),
+            (S, "_all_gather_cat", reg.timed(S._all_gather_cat, "tp_act_s")),
+            (S, "_reduce_scatter", reg.timed(S._reduce_scatter, "tp_act_s")),
+            (S, "_all_to_all", reg.timed(fns.get("a2a", S._all_to_all),
+                                         "tp_act_s")),
+            (S, "_psum", reg.timed(S._psum, "tp_act_s")),
+            (LY, "_psum", reg.timed(LY._psum, "tp_act_s")),
+            (S, "pmax_tp", reg.timed(S.pmax_tp, "tp_act_s")),
+            (LY, "pmax_tp", reg.timed(LY.pmax_tp, "tp_act_s")),
+            (C, "_ppermute", reg.counted(C._ppermute)),
+            (C, "_all_gather", reg.counted(C._all_gather))]
+
+
+@contextlib.contextmanager
+def _patched(patches):
+    """Set each (module, name, replacement) while open; restore on exit."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _tp_accounting(C, S, T, tr, ctx) -> dict:
+    """What one step of a TP run must do, from the metas: the DP leaf
+    syncs and their hops, the replicated leaves' TP butterflies and their
+    rounds, the encode (and single-decode) launches, and the bytes the
+    butterflies send (each on the leaf gathered for the DP shards)."""
+    L = T.n_scan_steps(tr.cfg)
+    repl = [(g, k) for g in ("layers", "top")
+            for k, m in sorted(tr.metas[g].items()) if m.tp_replicated]
+    syncs = L * len(tr.metas["layers"]) + len(tr.metas["top"])
+    butterflies = sum(L if g == "layers" else 1 for g, _ in repl)
+    hops, rounds = ctx.dp.bit_length() - 1, ctx.tp.bit_length() - 1
+    tp_bytes = 0
+    for g, k in repl:
+        n = S.leaf_gathered_len(tr.metas[g][k], ctx)
+        b = ctx.qcfg.bucket
+        while b > 32 and n < b:
+            b //= 2
+        qb = dataclasses.replace(ctx.qcfg, bucket=b)
+        tp_bytes += C.wire_bytes_butterfly(C.flat_size_padded(n, qb), ctx.tp,
+                                           qb) * (L if g == "layers" else 1)
+    return dict(repl=repl, dp_syncs=syncs, hops=hops,
+                tp_butterflies=butterflies, rounds=rounds,
+                per_step=syncs * hops + butterflies * rounds,
+                tp_wire_bytes_step=tp_bytes)
+
+
+def _tp_train_run(torch, tr, reg, n_steps: int, tp_axis, tp: int,
+                  tag: str) -> dict:
+    """Train ``tr`` (its ``_init`` state, no checkpoint) with every step
+    timed by the region timers and every count of launches set to 0 just
+    before; read the counts just after.  Checks, on every step: a finite
+    loss and gnorm; the DP syncs' bytes == ``wire_bytes_step``, the TP
+    butterflies' == their accounting, the encodes == syncs x hops +
+    butterflies x rounds; the replicated leaves the same bits on every TP
+    rank; no restart."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.kernels import _build
+    from repro_torch.models import sharding as S
+    from repro_torch.models import transformer as T
+
+    acct = _tp_accounting(C, S, T, tr, tr.ctx)
+    inner = tr.step_fn
+    steps, repl_equal = [], []
+
+    def repl_digest(state):
+        return torch.tensor(_bits_digest(torch, {
+            f"{g}/{k}": {"p": state["params"][g][k], "y": state["y"][g][k],
+                         **{m: state["opt"][m][g][k] for m in state["opt"]}}
+            for g, k in acct["repl"]}), dtype=torch.int64)
+
+    def timed_step(state, batch):
+        data_s = reg.s.get("data_s", 0.0)
+        reg.reset()
+        n0 = _build.LAUNCHES["lattice_encode"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = inner(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(
+            step=int(state["step"]), wall_s=time.perf_counter() - t0,
+            gather_s=reg.s.get("gather_s", 0.0),
+            sync_s=reg.s.get("sync_s", 0.0),
+            tp_sync_s=reg.s.get("tp_sync_s", 0.0),
+            tp_act_s=reg.s.get("tp_act_s", 0.0), data_s=data_s,
+            loss=float(metrics["loss"]), gnorm=float(metrics["gnorm"]),
+            fails=float(metrics["fails"]),
+            sent_dp=reg.sent.get("sync_s", 0),
+            sent_tp_sync=reg.sent.get("tp_sync_s", 0),
+            sent_tp_act=reg.sent.get("tp_act_s", 0),
+            encodes=_build.LAUNCHES["lattice_encode"] - n0,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        pair = F._gather_tiled(repl_digest(new), [tp_axis]).reshape(tp, -1)
+        repl_equal.append(bool(torch.equal(pair[0], pair[1])))
+        return new, metrics
+
+    tr.step_fn = timed_step
+    tr._batch = reg.timed(tr._batch, "data_s")
+    tr.save = lambda state: None      # no checkpoint (train_internvl2_tp's)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    tr.train()              # its initial state is held by the loop alone
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = dict(_build.LAUNCHES)             # read just after the path
+    if tr.lead:
+        shutil.rmtree(tr.tc.ckpt_dir, ignore_errors=True)
+    # params and gradient in f32, the two moments in the optimizer's type
+    moment = torch.tensor([], dtype=getattr(torch, tr.opt_cfg.state_dtype))
+    elems = sum(S.shard_len(m, tr.ctx) * (T.n_scan_steps(tr.cfg)
+                                          if g == "layers" else 1)
+                for g in tr.metas for m in tr.metas[g].values())
+    state_gb = elems * (8 + 2 * moment.element_size()) / 1e9
+    rank = tr.rank * tp + tr.tp_rank
+    check(tr.restarts == 0, f"{tag} rank {rank}: {tr.restarts} restarts")
+    check(len(steps) == n_steps, f"{tag} rank {rank}: {len(steps)} steps")
+    check(all(repl_equal), f"{tag} rank {rank}: the replicated leaves "
+          f"differ across the TP ranks after steps {repl_equal}")
+    for st in steps:
+        check(math.isfinite(st["loss"]) and math.isfinite(st["gnorm"]),
+              f"{tag} rank {rank} step {st['step']}: loss {st['loss']}")
+        check(st["sent_dp"] == tr.wire_bytes_step,
+              f"{tag} rank {rank} step {st['step']}: the DP syncs sent "
+              f"{st['sent_dp']} B, wire_bytes_step is {tr.wire_bytes_step}")
+        check(st["sent_tp_sync"] == acct["tp_wire_bytes_step"],
+              f"{tag} rank {rank} step {st['step']}: the TP psums sent "
+              f"{st['sent_tp_sync']} B, the wire accounting gives "
+              f"{acct['tp_wire_bytes_step']}")
+        check(st["encodes"] == acct["per_step"],
+              f"{tag} rank {rank} step {st['step']}: {st['encodes']} "
+              f"encodes, expected {acct['dp_syncs']} x {acct['hops']} + "
+              f"{acct['tp_butterflies']} x {acct['rounds']}")
+    for k in ("lattice_encode", "lattice_decode"):
+        check(launches[k] == n_steps * acct["per_step"],
+              f"{tag} rank {rank}: {launches[k]} {k} launches, expected "
+              f"{n_steps} x {acct['per_step']}")
+    acct.pop("repl")
+    return dict(rank=rank, steps=steps, path_seconds=path_s,
+                state_gb=state_gb,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                launches=launches, wire_bytes_step=tr.wire_bytes_step,
+                expected_launches=n_steps * acct["per_step"],
+                replicated_equal_after_steps=repl_equal, **acct)
+
+
+def train_moe_rank_main(torch, rank: int, world: int, seed: int) -> dict:
+    """One rank's share of the MoE phase; every check raises.
+
+    The main path: the port's ``Trainer`` for MOE_STEPS steps of
+    granite-moe-1b-a400m at full width and depth on the (dp 2, tp 2) mesh,
+    sequence parallel (2,048 of a DP rank's 4,096 tokens routed by each TP
+    rank), its 32 experts split 16 a TP rank behind two tiled all-to-alls
+    a layer, the replicated leaves' gradients (the router among them)
+    psummed over TP through the quantized butterfly, prefetching FSDP with
+    remat and the quantized DP reduce-scatter, AdamW.  Then: layer 0's
+    ``router`` TP psum of step 0 again on the CPU over the same gloo group
+    (bitwise), and step 0's first all-to-all against the host's
+    permutation of every TP rank's rows (bitwise)."""
+    from repro_torch import random as R
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models import layers as LY
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as S
+    from repro_torch.models import transformer as T
+    from repro_torch.train import data as D
+    from repro_torch.train import optim as O
+    from repro_torch.train import trainer as TR
+
+    dev = torch.device("cuda")
+    torch.use_deterministic_algorithms(True)
+    dp_axes, tp_axis = mesh_axes(TP_MESH)
+    dp, tp = TP_MESH
+    cfg = registry.config(MOE_ARCH)
+    ctx = S.ShardCtx(tp=tp, dp=dp, dp_axes=dp_axes, tp_axis=tp_axis,
+                     qcfg=C.QSyncConfig(q=16, bucket=4096), grad_sync="lq",
+                     seq_parallel=True, quantize_tp_grads=True, prefetch=True)
+    opt = O.OptConfig(lr=3e-4, warmup=1, decay_steps=MOE_STEPS)
+    data = D.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=dp,
+                        seed=seed)
+    tc = TR.TrainConfig(steps=MOE_STEPS, ckpt_every=10 ** 6, log_every=1,
+                        max_restarts=0)
+    n_router = S.leaf_gathered_len(T.block_metas(cfg, ctx)["router"], ctx)
+
+    # recorders: each step's aux, the forward's routings (the recompute's
+    # come after them), step 0's first all-to-all and router TP psums, and
+    # the DP sync input of layer 0's router
+    rec = {"aux": [], "routes": [], "a2a": None, "tp": [], "on": True}
+    make_loss, route, sync, tpq, a2a = (T.make_loss_fn, MOE.route,
+                                        F._sync_grad, S._tp_quantized_psum,
+                                        S._all_to_all)
+
+    def make_recorded(cfg_, ctx_):
+        fn = make_loss(cfg_, ctx_)
+
+        def loss_fn(*args):
+            loss, m = fn(*args)
+            rec["aux"].append(m["aux"])
+            return loss, m
+        return loss_fn
+
+    def route_recorded(x, router, cfg_, cap):
+        out = route(x, router, cfg_, cap)
+        if rec["on"] and len(rec["routes"]) < cfg.n_layers:
+            rec["routes"].append((out[1].detach().clone(),
+                                  out[3].detach().clone()))
+        return out
+
+    def sync_recorded(cfg_, g, y_entry, key, tele_like, anchor_full):
+        if key == rec.get("key"):
+            rec["dp_in"] = g.reshape(-1).to(torch.float32).clone()
+        return sync(cfg_, g, y_entry, key, tele_like, anchor_full)
+
+    def tpq_recorded(g, ctx_):
+        out = tpq(g, ctx_)
+        if rec["on"] and g.numel() == n_router:
+            rec["tp"].append((g.detach().clone(), out.detach().clone()))
+        return out
+
+    def a2a_recorded(x, ctx_, split_axis, concat_axis):
+        out = a2a(x, ctx_, split_axis, concat_axis)
+        if rec["a2a"] is None and (split_axis, concat_axis) == (0, 1):
+            rec["a2a"] = (x.detach().clone(), out.detach().clone())
+        return out
+
+    reg = _Regions(torch)
+    patches = _tp_instruments(reg, F, C, S, LY, sync=sync_recorded,
+                              tpq=tpq_recorded, a2a=a2a_recorded)
+    patches += [(T, "make_loss_fn", make_recorded),
+                (MOE, "route", route_recorded)]
+    with _patched(patches):
+        tr = TR.Trainer(cfg, ctx, opt, tc, data, device=dev)
+        # layer 0's router, step 0 (the Trainer's initial key is PRNGKey(0))
+        rec["key"] = T._leaf_key(R.fold_in(R.fold_in(R.PRNGKey(0), 0), 1),
+                                 "router")
+        inner = tr.step_fn
+
+        def first_step_only(state, batch):
+            out = inner(state, batch)
+            rec["on"] = False
+            return out
+
+        tr.step_fn = first_step_only
+        out = _tp_train_run(torch, tr, reg, MOE_STEPS, tp_axis, tp,
+                            "train_granite_moe_tp")
+
+    aux = [float(a) for a in rec["aux"]]
+    check(len(aux) == MOE_STEPS and all(math.isfinite(a) for a in aux),
+          f"rank {rank}: aux {aux}")
+    for st, a in zip(out["steps"], aux):
+        st["aux"] = a
+    # the tokens each expert dropped at capacity in step 0's forward
+    E = cfg.n_experts
+    dropped = torch.zeros(E, dtype=torch.int64)
+    for idx, keep in rec["routes"]:
+        e = idx.reshape(-1)[~keep].cpu()
+        dropped += torch.nn.functional.one_hot(e, E).sum(0)
+    T_loc = TRAIN_SEQ // tp
+    out.update(tokens_routed=T_loc, capacity=MOE.capacity(T_loc, cfg),
+               dropped_per_expert=dropped.tolist(),
+               dropped_share=float(dropped.sum()) /
+               (cfg.n_layers * T_loc * cfg.top_k))
+
+    # layer 0's router TP psum of step 0, again on the CPU over the same
+    # gloo group from the same cotangent: the card's output bit for bit
+    dp_in = rec["dp_in"]
+    match = [(g, o) for g, o in rec["tp"]
+             if torch.equal(o.reshape(-1).to(torch.float32).view(torch.int32),
+                            dp_in.view(torch.int32))]
+    check(len(match) == 1, f"rank {rank}: {len(match)} step-0 TP psums "
+          f"match layer 0's router DP sync input")
+    g_card, o_card = match[0]
+    o_cpu = S._tp_quantized_psum(g_card.cpu(), ctx)
+    check(torch.equal(o_cpu.view(torch.int16), o_card.cpu().view(torch.int16))
+          if o_cpu.dtype == torch.bfloat16 else
+          torch.equal(o_cpu.view(torch.int32), o_card.cpu().view(torch.int32)),
+          f"rank {rank}: layer 0's router quantized TP psum on the card "
+          f"differs from the same psum on the CPU")
+    out["router_tp_psum_card_equals_cpu"] = True
+
+    # step 0's first all-to-all (layer 0's dispatch): the host's tiled
+    # permutation of every TP rank's rows, bit for bit
+    x_in, x_out = rec["a2a"]
+    rows = C._all_gather(x_in.cpu(), tp_axis)
+    me = S.tp_index(ctx)
+    want = torch.cat([rows[r].chunk(tp, 0)[me] for r in range(tp)], dim=1)
+    check(torch.equal(want.view(torch.int16), x_out.cpu().view(torch.int16)),
+          f"rank {rank}: the all-to-all's output differs from the host's "
+          f"permutation of the same rows")
+    out["all_to_all_equals_host"] = True
+    out["all_to_all_shape"] = [list(x_in.shape), list(x_out.shape)]
+    del rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_granite_moe_tp(seed: int) -> dict:
+    """The MoE phase: four ranks on the one card over gloo as a (dp 2,
+    tp 2) mesh, the port's Trainer at granite-moe-1b-a400m's full width and
+    depth; returns the encode and single-decode launches of the main path,
+    summed over the ranks."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(train_moe_rank_main, (seed,),
+                         "train_granite_moe_tp")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in COLLECTIVE_KERNELS}
+    for name in ("lattice_encode", "lattice_decode"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the MoE phase")
+    for st in range(MOE_STEPS):
+        say("train_moe_step", step=st,
+            ranks=[{k: r["steps"][st][k] for k in
+                    ("wall_s", "gather_s", "sync_s", "tp_sync_s", "tp_act_s",
+                     "data_s", "loss", "aux", "gnorm", "fails", "peak_gb",
+                     "sent_dp", "sent_tp_sync", "sent_tp_act")}
+                   for r in ranks])
+    say("train_granite_moe_tp", mesh=dict(dp=TP_MESH[0], tp=TP_MESH[1]),
+        arch=MOE_ARCH, layers=24, experts=32, experts_per_tp_rank=16,
+        seq=TRAIN_SEQ, global_batch=TP_MESH[0], steps=MOE_STEPS,
+        seq_parallel=True, quantize_tp_grads=True,
+        wall_s=time.perf_counter() - t0, launches=launches,
+        ranks=[{k: r[k] for k in (
+            "rank", "path_seconds", "state_gb", "peak_gb", "wire_bytes_step",
+            "tp_wire_bytes_step", "expected_launches", "dp_syncs", "hops",
+            "tp_butterflies", "rounds", "replicated_equal_after_steps",
+            "tokens_routed", "capacity", "dropped_per_expert",
+            "dropped_share", "router_tp_psum_card_equals_cpu",
+            "all_to_all_equals_host", "all_to_all_shape")} for r in ranks])
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6d: the other families — Mamba-2, the RG-LRU hybrid, whisper
+# ---------------------------------------------------------------------------
+
+def _family_trainer_run(torch, rank: int, arch: str, layers: int,
+                        steps: int, state_dtype: str, mesh, seed: int
+                        ) -> dict:
+    """One family on the (dp 2, tp 2) mesh through the port's Trainer at
+    full width, ``layers`` deep, sequence parallel, with the quantized TP
+    psum and the prefetching quantized DP sync (``_tp_train_run``'s
+    checks)."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.models import layers as LY
+    from repro_torch.models import sharding as S
+    from repro_torch.train import data as D
+    from repro_torch.train import optim as O
+    from repro_torch.train import trainer as TR
+
+    dp_axes, tp_axis = mesh
+    dp, tp = TP_MESH
+    cfg = dataclasses.replace(registry.config(arch), n_layers=layers)
+    ctx = S.ShardCtx(tp=tp, dp=dp, dp_axes=dp_axes, tp_axis=tp_axis,
+                     qcfg=C.QSyncConfig(q=16, bucket=4096), grad_sync="lq",
+                     seq_parallel=True, quantize_tp_grads=True, prefetch=True)
+    opt = O.OptConfig(lr=3e-4, warmup=1, decay_steps=steps,
+                      state_dtype=state_dtype)
+    data = D.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=dp,
+                        seed=seed)
+    tc = TR.TrainConfig(steps=steps, ckpt_every=10 ** 6, log_every=1,
+                        max_restarts=0)
+    reg = _Regions(torch)
+    with _patched(_tp_instruments(reg, F, C, S, LY)):
+        tr = TR.Trainer(cfg, ctx, opt, tc, data, device=torch.device("cuda"))
+        out = _tp_train_run(torch, tr, reg, steps, tp_axis, tp, arch)
+    out.update(arch=arch, layers=layers, state_dtype=state_dtype,
+               params=cfg.param_count())
+    return out
+
+
+def _whisper_backward(torch, rank: int, world: int, seed: int) -> dict:
+    """whisper-small at full width and depth (12 + 12 layers, 1,500 stub
+    frames, 448 decoder tokens) over ``world`` DP ranks: one loss and
+    backward through ``make_encdec_loss_fn``, every leaf's gradient
+    reduce-scattered by packed q = 16 recursive halving (prefetching,
+    remat), as the reference drives it (its launcher has no encdec path).
+    Checks a finite loss the same on every rank's DP mean, finite
+    gradients, the bytes == the wire accounting and the encodes and single
+    decodes == syncs x hops."""
+    from repro_torch import random as R
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_groups
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as LY
+    from repro_torch.models import sharding as S
+    from repro_torch.train import data as D
+
+    dev = torch.device("cuda")
+    cfg = registry.config("whisper-small")
+    ctx = S.ShardCtx(dp=world, dp_axes=make_groups((world,)),
+                     qcfg=C.QSyncConfig(q=16, bucket=4096), grad_sync="lq",
+                     prefetch=True)
+    metas = ED.encdec_metas(cfg, ctx)
+    layers = {"enc": cfg.enc_layers, "dec": cfg.n_layers, "top": 0}
+
+    def leaves(tree):
+        return {g: {k: ([v[i].detach().requires_grad_()
+                         for i in range(layers[g])] if layers[g]
+                        else v.detach().requires_grad_())
+                    for k, v in t.items()} for g, t in tree.items()}
+
+    params = leaves(ED.init_encdec_params(cfg, ctx, R.PRNGKey(seed),
+                                          dp_rank=rank, device=dev))
+    tele = leaves(ED.encdec_tele_zeros(cfg, ctx, device=dev))
+    y = ED.encdec_y_init(cfg, ctx, 1.0, device=dev)
+    data = D.DataConfig(vocab=cfg.vocab, seq_len=WHISPER_DEC_SEQ,
+                        global_batch=world, seed=seed)
+    batch = D.local_batch_at(data, 0, rank, world, device=dev)
+    batch["frames"] = D.frames_at(data, 0, cfg.enc_seq, cfg.d_model,
+                                  rows=(rank, rank + 1), device=dev)
+    loss_fn = ED.make_encdec_loss_fn(cfg, ctx)
+    sizes = F._dp_sizes(ctx.dp_axes)
+    fcfg = ctx.fsdp_config()
+    want_bytes = sum(max(layers[g], 1) * F.wire_bytes_bwd(
+        S.shard_len(m, ctx) * ctx.dp, sizes, fcfg)
+        for g in metas for m in metas[g].values())
+    syncs = sum(max(layers[g], 1) * len(metas[g]) for g in metas)
+    hops = world.bit_length() - 1
+
+    reg = _Regions(torch)
+    with _patched(_tp_instruments(reg, F, C, S, LY)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, m = loss_fn(params, tele, batch, R.PRNGKey(seed + 1), y)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)         # read just after the path
+    grads = [t.grad for g in params.values() for v in g.values()
+             for t in (v if isinstance(v, list) else [v])]
+    finite = all(bool(torch.isfinite(gr).all()) for gr in grads)
+    loss_f = float(m["loss"])
+    check(math.isfinite(loss_f) and finite,
+          f"whisper rank {rank}: loss {loss_f}, finite grads {finite}")
+    check(reg.sent.get("sync_s", 0) == want_bytes,
+          f"whisper rank {rank}: the DP syncs sent "
+          f"{reg.sent.get('sync_s', 0)} B, the accounting gives {want_bytes}")
+    for k in ("lattice_encode", "lattice_decode"):
+        check(launches[k] == syncs * hops,
+              f"whisper rank {rank}: {launches[k]} {k} launches, expected "
+              f"{syncs} x {hops}")
+    return dict(rank=rank, arch="whisper-small", wall_s=wall, forward_s=fwd_s,
+                gather_s=reg.s.get("gather_s", 0.0),
+                sync_s=reg.s.get("sync_s", 0.0), loss=loss_f,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches, dp_syncs=syncs, hops=hops,
+                wire_bytes=want_bytes, params=cfg.param_count())
+
+
+def train_families_rank_main(torch, rank: int, world: int, seed: int
+                             ) -> dict:
+    """One rank's share of the families phase: mamba2-1.3b and
+    recurrentgemma-9b through the Trainer on the (dp 2, tp 2) mesh, then
+    whisper-small's loss and backward over four DP ranks.  Each path's
+    counts of launches are set to 0 just before it and read just after."""
+    import gc
+
+    from repro_torch.launch.mesh import mesh_axes
+
+    torch.use_deterministic_algorithms(True)
+    mesh = mesh_axes(TP_MESH)
+    out = {}
+    for arch, layers, steps, state_dtype in FAMILY_RUNS:
+        held = torch.cuda.memory_allocated() / 1e9
+        out[arch] = _family_trainer_run(torch, rank, arch, layers, steps,
+                                        state_dtype, mesh, seed)
+        out[arch]["held_before_gb"] = held
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["whisper-small"] = _whisper_backward(torch, rank, world, seed)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_families(seed: int) -> dict:
+    """The families phase (see ``train_families_rank_main``); returns the
+    encode and single-decode launches of its paths, summed over the ranks
+    and the paths."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(train_families_rank_main, (seed,),
+                         "train_families")
+    total = {k: 0 for k in COLLECTIVE_KERNELS}
+    for arch, layers, steps, state_dtype in FAMILY_RUNS:
+        rs = [r[arch] for r in ranks]
+        launches = {k: sum(r["launches"][k] for r in rs)
+                    for k in COLLECTIVE_KERNELS}
+        for k in COLLECTIVE_KERNELS:
+            total[k] += launches[k]
+        for k in ("lattice_encode", "lattice_decode"):
+            check(launches[k] > 0, f"kernel {k} was not launched by {arch}")
+        say("train_family", arch=arch, layers=layers, steps=steps,
+            optimizer_state=state_dtype, params=rs[0]["params"],
+            mesh=dict(dp=TP_MESH[0], tp=TP_MESH[1]), seq=TRAIN_SEQ,
+            seq_parallel=True, launches=launches,
+            ranks=[{k: r[k] for k in (
+                "rank", "path_seconds", "state_gb", "held_before_gb",
+                "peak_gb", "reserved_gb", "wire_bytes_step",
+                "tp_wire_bytes_step", "expected_launches",
+                "dp_syncs", "hops", "tp_butterflies", "rounds")}
+                   | {"steps": [{k: st[k] for k in (
+                       "wall_s", "gather_s", "sync_s", "tp_sync_s",
+                       "tp_act_s", "loss", "gnorm", "fails", "peak_gb")}
+                       for st in r["steps"]]} for r in rs])
+    rs = [r["whisper-small"] for r in ranks]
+    launches = {k: sum(r["launches"][k] for r in rs)
+                for k in COLLECTIVE_KERNELS}
+    for k in COLLECTIVE_KERNELS:
+        total[k] += launches[k]
+    for k in ("lattice_encode", "lattice_decode"):
+        check(launches[k] > 0, f"kernel {k} was not launched by whisper")
+    say("train_family", arch="whisper-small", world=WORLD,
+        enc_frames=1500, dec_tokens=WHISPER_DEC_SEQ, params=rs[0]["params"],
+        launches=launches,
+        ranks=[{k: r[k] for k in ("rank", "wall_s", "forward_s", "gather_s",
+                                  "sync_s", "loss", "peak_gb", "dp_syncs",
+                                  "hops", "wire_bytes")} for r in rs])
+    say("train_families", wall_s=time.perf_counter() - t0, launches=total)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2754,6 +3318,14 @@ def main() -> int:
     train = train_internvl2_tp(args.seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
     tp_kernel_checks(torch, args.seed)
+    for phase in (train_granite_moe_tp, train_families):
+        torch.cuda.empty_cache()        # four ranks share the card next
+        say("parent_memory", before=phase.__name__,
+            allocated_gb=torch.cuda.memory_allocated() / 1e9,
+            reserved_gb=torch.cuda.memory_reserved() / 1e9,
+            card_free_gb=torch.cuda.mem_get_info()[0] / 1e9)
+        got = phase(args.seed)
+        counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}
     for phase in (agg_service, agg_tree, agg_engine_small):
         got = phase(torch, args.seed)
         counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}

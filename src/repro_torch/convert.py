@@ -6,7 +6,9 @@ included) to :func:`round_spec`, a reference ``QState``'s arrays to
 :func:`qstate_from_numpy`, and numpy arrays (an anchor, a client vector)
 to :func:`tensor`; both sides of a comparison are then built from the same
 numbers.  :func:`train_state_from_numpy` carries a reference training
-state (its global storage arrays) across as one rank's slices.
+state (its global storage arrays) across as one rank's slices, and
+:func:`params_from_numpy` a parameter tree, the encoder-decoder's
+``{"enc", "dec", "top"}`` one included.
 """
 from __future__ import annotations
 
@@ -54,6 +56,19 @@ def _rank_slice(a, dp_rank: int, tp_rank: int, dev) -> torch.Tensor:
     return tensor(a[..., tp_rank:tp_rank + 1, dp_rank:dp_rank + 1, :], dev)
 
 
+def params_from_numpy(params_np: dict, rank: int, device=None,
+                      tp_rank: int = 0) -> dict:
+    """A reference parameter (or moment) tree of global storage arrays
+    ``(L?, tp, dp, shard)`` — groups ``layers``/``top``, or the
+    encoder-decoder's ``enc``/``dec``/``top`` — as the ``(L?, 1, 1,
+    shard)`` slices of the rank at DP index ``rank`` and TP index
+    ``tp_rank``, on ``device`` (the CUDA device unless another is named)."""
+    dev = resolve_device(device)
+    return {grp: {k: _rank_slice(v, rank, tp_rank, dev)
+                  for k, v in leaves.items()}
+            for grp, leaves in params_np.items()}
+
+
 def train_state_from_numpy(state_np: dict, cfg, ctx, rank: int,
                            device=None, tp_rank: int = 0) -> dict:
     """A reference training state, as numpy arrays — params and optimizer
@@ -65,9 +80,7 @@ def train_state_from_numpy(state_np: dict, cfg, ctx, rank: int,
     dev = resolve_device(device)
 
     def tree(t):
-        return {grp: {k: _rank_slice(v, rank, tp_rank, dev)
-                      for k, v in t[grp].items()}
-                for grp in ("layers", "top")}
+        return params_from_numpy(t, rank, dev, tp_rank)
 
     def y_leaf(v):
         if isinstance(v, dict):
@@ -80,7 +93,7 @@ def train_state_from_numpy(state_np: dict, cfg, ctx, rank: int,
     key = np.asarray(state_np["key"]).astype(np.uint32).reshape(-1)
     return {"params": tree(state_np["params"]),
             "opt": {k: tree(v) for k, v in state_np["opt"].items()},
-            "y": {grp: {k: y_leaf(v) for k, v in state_np["y"][grp].items()}
-                  for grp in ("layers", "top")},
+            "y": {grp: {k: y_leaf(v) for k, v in leaves.items()}
+                  for grp, leaves in state_np["y"].items()},
             "step": int(np.asarray(state_np["step"])),
             "key": (int(key[0]), int(key[1]))}

@@ -13,6 +13,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
       --mesh 2x2 --seq 4096 --batch 2 --steps 3
 
+  # the MoE family, experts split over the TP ranks:
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-1b-a400m --mesh 2x2 --seq 4096 --batch 2 --steps 3
+
   # CPU rehearsal, smoke config:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
       --smoke --mesh 2x2 --steps 5 --device cpu
@@ -66,8 +70,14 @@ def model_config(args) -> ModelConfig:
     if args.preset:
         return PRESETS[args.preset]
     if args.arch:
-        return (registry.smoke_config(args.arch) if args.smoke
-                else registry.config(args.arch))
+        cfg = (registry.smoke_config(args.arch) if args.smoke
+               else registry.config(args.arch))
+        if cfg.family == "encdec":
+            # as the reference's launcher: the encoder-decoder trains
+            # through models/encdec.make_encdec_loss_fn, not this driver
+            raise SystemExit("encdec training driver: use tests/benchmarks "
+                             "(frames batch wiring differs)")
+        return cfg
     raise SystemExit("pass --arch or --preset")
 
 
@@ -90,7 +100,7 @@ def run_rank(rank: int, dp: int, tp: int, addr: str, args) -> None:
                        qcfg=QSyncConfig(q=args.q, bucket=args.bucket,
                                         rotate=args.rotate),
                        grad_sync=args.grad_sync,
-                       seq_parallel=tp > 1 and cfg.family != "encdec")
+                       seq_parallel=tp > 1)
         tc = TrainConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir, log_every=args.log_every,
                          microbatch=args.microbatch)

@@ -5,5 +5,10 @@
                   the FSDP gather per leaf.
 ``layers``      — norms, rope, attention, MLP, embedding, cross entropy.
 ``transformer`` — metas and init for every family; the training forward
-                  pass of the dense and VLM families.
+                  pass of the dense, VLM, MoE, SSM and hybrid families.
+``moe``         — the expert-parallel MoE MLP (router, capacity, TP
+                  all-to-all).
+``ssm``         — the Mamba-2 SSD mixer (chunked and one-token step).
+``rglru``       — the RG-LRU recurrent block (parallel prefix scan).
+``encdec``      — the encoder-decoder (whisper) metas, init and loss.
 """

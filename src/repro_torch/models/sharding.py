@@ -23,9 +23,10 @@ through the quantized butterfly, ``quantize_tp_grads``) before the DP
 reduce-scatter.
 
 The TP collectives (:func:`psum_tp`, :func:`all_gather_tp`,
-:func:`reduce_scatter_tp`) are autograd functions whose backward is the
-reference's pinned transpose: psum -> psum, all-gather ->
-reduce-scatter-sum, reduce-scatter -> all-gather.  Every sum adds the
+:func:`reduce_scatter_tp`, :func:`all_to_all_tp`) are autograd functions
+whose backward is the reference's pinned transpose: psum -> psum,
+all-gather -> reduce-scatter-sum, reduce-scatter -> all-gather,
+all-to-all -> the reverse all-to-all.  Every sum adds the
 ranks' terms in rank order, so each rank holds the same bits; XLA's
 order for ``psum`` and ``psum_scatter`` is not pinned, so a sum of more
 than two terms may differ from the reference's by rounding.
@@ -495,6 +496,24 @@ def _reduce_scatter(x: torch.Tensor, ctx: ShardCtx, axis: int
     return out
 
 
+def _all_to_all(x: torch.Tensor, ctx: ShardCtx, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """Tiled all-to-all over TP (``jax.lax.all_to_all(..., tiled=True)``):
+    ``x`` splits into tp slices along ``split_axis``, slice j goes to rank
+    j, and the slices received are concatenated along ``concat_axis`` in
+    the senders' rank order.  One ``ppermute`` round per rank offset, as
+    :func:`_reduce_scatter`; it moves values only, so it is exact."""
+    world, rank = ctx.tp, tp_index(ctx)
+    parts = torch.chunk(x, world, dim=split_axis)
+    got = [None] * world
+    got[rank] = parts[rank]
+    for k in range(1, world):
+        perm = [(i, (i + k) % world) for i in range(world)]
+        got[(rank - k) % world] = C._ppermute(
+            parts[(rank + k) % world].contiguous(), perm, ctx.tp_axis)
+    return torch.cat(got, dim=concat_axis)
+
+
 class _PsumTP(torch.autograd.Function):
     @staticmethod
     def forward(fc, x, ctx: ShardCtx):
@@ -528,6 +547,19 @@ class _ReduceScatterTP(torch.autograd.Function):
         return _all_gather_cat(g, fc.sctx, fc.axis), None, None
 
 
+class _AllToAllTP(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, x, ctx: ShardCtx, split_axis: int, concat_axis: int):
+        fc.sctx, fc.axes = ctx, (split_axis, concat_axis)
+        return _all_to_all(x, ctx, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(fc, g):
+        split_axis, concat_axis = fc.axes
+        return _all_to_all(g, fc.sctx, concat_axis, split_axis), None, None, \
+            None
+
+
 def psum_tp(x, ctx: ShardCtx):
     return _PsumTP.apply(x, ctx) if ctx.tp > 1 else x
 
@@ -546,6 +578,14 @@ def all_gather_tp(x, ctx: ShardCtx, axis: int = 0):
 
 def reduce_scatter_tp(x, ctx: ShardCtx, axis: int = 0):
     return _ReduceScatterTP.apply(x, ctx, axis) if ctx.tp > 1 else x
+
+
+def all_to_all_tp(x, ctx: ShardCtx, split_axis: int, concat_axis: int):
+    """Tiled all-to-all over TP; its backward is the reverse all-to-all
+    (split and concat axes swapped), the transpose of a permutation."""
+    if ctx.tp == 1:
+        return x
+    return _AllToAllTP.apply(x, ctx, split_axis, concat_axis)
 
 
 def tp_index(ctx: ShardCtx) -> int:

@@ -1,10 +1,10 @@
 """Model assembly: parameter metas, init, and the training forward pass;
 counterpart of ``repro.models.transformer``.
 
-The metas (and so the storage, ``y`` and telemetry shapes) are the
-reference's for every family.  The forward pass is ported for the
-``dense`` and ``vlm`` families; the others (moe, ssm, hybrid) raise, and
-wait for their layers (``ROADMAP.md`` section 1).
+Families covered here: dense, moe, ssm, hybrid (RG-LRU), vlm; the
+encoder-decoder (whisper) lives in ``models/encdec.py`` on the same
+substrate.  The metas (and so the storage, ``y`` and telemetry shapes)
+are the reference's for every family.
 
 Parameters arrive as each rank's ZeRO-3 storage slices (``models/
 sharding.py``) and each layer re-gathers its weights through the FSDP
@@ -28,15 +28,21 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import random as _random
 from repro_torch import resolve_device
 from repro_torch.models import layers as LY
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import (LeafMeta, ShardCtx, anchor_shape,
-                                         gather_param, gather_param_async,
+from repro_torch.models.sharding import (LeafMeta, ShardCtx, all_gather_tp,
+                                         anchor_shape, gather_param,
+                                         gather_param_async,
                                          gather_param_wait, init_leaf,
                                          leaf_nb, leaf_tele_width, leaf_y0,
-                                         make_gathers, make_split_gathers)
+                                         make_gathers, make_split_gathers,
+                                         tp_index)
 
-# families whose forward pass the port has
-FORWARD_FAMILIES = ("dense", "vlm")
+# families whose training forward pass make_loss_fn builds (the
+# reference's; encdec has its own, models/encdec.py)
+FORWARD_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +269,21 @@ def tele_zeros(cfg: ModelConfig, ctx: ShardCtx, *, device=None) -> dict:
 # Blocks (operating on gathered weights)
 # ---------------------------------------------------------------------------
 
+def _moe_apply(x_norm: torch.Tensor, wts: dict, cfg: ModelConfig,
+               ctx: ShardCtx):
+    """Token-sliced MoE; returns (the full out in x_norm's layout, aux)."""
+    B, S, D = x_norm.shape
+    if ctx.seq_parallel or ctx.tp == 1:
+        out, aux = MOE.moe_mlp(x_norm.reshape(B * S, D), wts, cfg, ctx)
+        return out.reshape(B, S, D), aux
+    # not SP: slice the tokens over tp, compute, gather back
+    t_loc = (B * S) // ctx.tp
+    i = tp_index(ctx)
+    sl = x_norm.reshape(B * S, D)[i * t_loc:(i + 1) * t_loc]
+    out, aux = MOE.moe_mlp(sl, wts, cfg, ctx)
+    return all_gather_tp(out, ctx, axis=0).reshape(B, S, D), aux
+
+
 def dense_block(x: torch.Tensor, wts: dict, cfg: ModelConfig, ctx: ShardCtx,
                 positions: torch.Tensor, window: int = 0):
     a_in = LY.rms_norm(x, wts["ln1"], cfg.norm_eps)
@@ -271,9 +292,47 @@ def dense_block(x: torch.Tensor, wts: dict, cfg: ModelConfig, ctx: ShardCtx,
                        window=window)
     x = x + LY.attn_exit(att, cfg, ctx)
     m_in = LY.rms_norm(x, wts["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        out, aux = _moe_apply(m_in, wts, cfg, ctx)
+        return x + out, aux
     mg = LY.sp_enter(m_in, ctx)
     x = x + LY.sp_exit(LY.mlp(mg, wts, cfg), ctx)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def ssm_block(x: torch.Tensor, wts: dict, cfg: ModelConfig, ctx: ShardCtx
+              ) -> torch.Tensor:
+    a_in = LY.rms_norm(x, wts["ln1"], cfg.norm_eps)
+    xg = LY.sp_enter(a_in, ctx)
+    out, _ = SSM.mamba2_block(xg, wts, cfg, ctx)
+    return x + LY.sp_exit(out, ctx)
+
+
+def _sub(wts: dict, prefix: str) -> dict:
+    n = len(prefix)
+    return {k[n:]: v for k, v in wts.items() if k.startswith(prefix)}
+
+
+def _recurrent_layer(x: torch.Tensor, sw: dict, cfg: ModelConfig,
+                     ctx: ShardCtx) -> torch.Tensor:
+    """One recurrent layer of the hybrid: the RG-LRU block, then its MLP."""
+    a_in = LY.rms_norm(x, sw["ln1"], cfg.norm_eps)
+    xg = LY.sp_enter(a_in, ctx)
+    out, _ = RG.recurrent_block(xg, sw, cfg, ctx)
+    x = x + LY.sp_exit(out, ctx)
+    m_in = LY.rms_norm(x, sw["ln2"], cfg.norm_eps)
+    mg = LY.sp_enter(m_in, ctx)
+    return x + LY.sp_exit(LY.mlp(mg, sw, cfg), ctx)
+
+
+def hybrid_unit(x: torch.Tensor, wts: dict, cfg: ModelConfig, ctx: ShardCtx,
+                positions: torch.Tensor) -> torch.Tensor:
+    for p in ("r1_", "r2_"):
+        x = _recurrent_layer(x, _sub(wts, p), cfg, ctx)
+    x, _ = dense_block(x, _sub(wts, "at_"),
+                       dataclasses.replace(cfg, family="dense"), ctx,
+                       positions, window=cfg.window)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -353,11 +412,8 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
     "mask": (B, S) f32; vlm also "img": (B, Timg, D)}, the DP rank's rows
     (the same on every TP rank of a DP group).  The loss is TP-global and
     DP-local (the gather's backward takes the DP mean); the first return
-    is it divided by tp, the second's "loss" the loss itself."""
-    if cfg.family not in FORWARD_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family's layers are not ported yet; see "
-            f"ROADMAP.md section 1")
+    is it divided by tp, the second's "loss" the loss itself.  An encdec
+    config raises ``ValueError`` (its loss is ``models/encdec.py``'s)."""
     metas = all_metas(cfg, ctx)
     gathers = make_gathers(ctx)
     split = make_split_gathers(ctx) if ctx.prefetch else None
@@ -379,7 +435,13 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
         if ctx.seq_parallel and ctx.tp > 1:
             x = LY.token_slice(x, ctx)
 
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
         def apply_block(xcur, wts):
+            if cfg.family == "ssm":
+                return ssm_block(xcur, wts, cfg, ctx), zero
+            if cfg.family == "hybrid":
+                return hybrid_unit(xcur, wts, cfg, ctx, positions), zero
             return dense_block(xcur, wts, cfg, ctx, positions)
 
         def key_fn(i):
@@ -403,6 +465,17 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
                                    preserve_rng_state=False)
                         if ctx.remat else body(x, i))
                 aux = aux + a
+
+        # the hybrid's tail layers (n_layers % 3, not stacked)
+        if cfg.family == "hybrid":
+            for t in range(cfg.n_layers % 3):
+                p = f"tail{t}_"
+                kl = _random.fold_in(key, 10_000 + t)
+                sw = {k[len(p):]: gather_param(
+                    params["top"][k], metas["top"][k], ctx, y["top"][k],
+                    _leaf_key(kl, k), tele["top"][k], gathers)
+                    for k in metas["top"] if k.startswith(p)}
+                x = _recurrent_layer(x, sw, cfg, ctx)
 
         fn = gather_param(params["top"]["final_norm"],
                           metas["top"]["final_norm"], ctx,

@@ -88,6 +88,32 @@ def _map(fn, *trees):
     return outs
 
 
+# elements of a leaf one update step takes at a time: the once-rounded
+# mul-adds and the root go through f64 temporaries, about 40 bytes an
+# element, so a whole 262 M-element shard (recurrentgemma-9b's vocab
+# leaves at dp 2, tp 2) would hold about 10 GB of them
+UPDATE_CHUNK = 1 << 24
+
+
+def _chunked(fn, *ts):
+    """``fn(*ts)`` for an elementwise ``fn`` returning a tuple of tensors
+    shaped like ``ts[0]``, taken over slices of the last dim of about
+    ``UPDATE_CHUNK`` elements each: the same bits, bounded temporaries."""
+    p = ts[0]
+    if p.dim() == 0 or p.numel() <= UPDATE_CHUNK:
+        return fn(*ts)
+    step = max(1, UPDATE_CHUNK * p.shape[-1] // p.numel())
+    outs = None
+    for c0 in range(0, p.shape[-1], step):
+        part = fn(*(t[..., c0:c0 + step] for t in ts))
+        if outs is None:
+            outs = tuple(torch.empty(p.shape, dtype=x.dtype, device=x.device)
+                         for x in part)
+        for o, x in zip(outs, part):
+            o[..., c0:c0 + step] = x
+    return outs
+
+
 def _unzip(tree: dict, i: int) -> dict:
     return {k: (_unzip(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
@@ -129,7 +155,8 @@ def apply_update(params: dict, grads: dict, opt_state: dict, step,
                          fma_f32(wd.to(dev).expand_as(p), p, u), p)
             return p2, m2.to(m.dtype), v2.to(v.dtype)
 
-        out = _map(upd, params, grads, opt_state["m"], opt_state["v"])
+        out = _map(lambda *t: _chunked(upd, *t), params, grads,
+                   opt_state["m"], opt_state["v"])
         return _unzip(out, 0), {"m": _unzip(out, 1), "v": _unzip(out, 2)}
 
     mom, wd = _t(cfg.momentum), _t(cfg.weight_decay)
@@ -142,7 +169,8 @@ def apply_update(params: dict, grads: dict, opt_state: dict, step,
                      fma_f32(wd.to(dev).expand_as(p), p, m2), p)
         return p2, m2.to(m.dtype)
 
-    out = _map(upd_m, params, grads, opt_state["m"])
+    out = _map(lambda *t: _chunked(upd_m, *t), params, grads,
+               opt_state["m"])
     return _unzip(out, 0), {"m": _unzip(out, 1)}
 
 

@@ -543,3 +543,77 @@ def test_fsdp_train_step_on_card(cuda):
                 np.testing.assert_array_equal(outs[0][1], outs[1][1])
     finally:
         dist.destroy_process_group()
+
+
+_MOE_RANK = """
+import datetime, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.configs import registry
+from repro_torch.models import moe as M
+from repro_torch.models import sharding as S
+
+rank, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=120))
+cfg = registry.smoke_config("granite-moe-1b-a400m")
+ctx = S.ShardCtx(tp=2, dp=1)
+D, F, e_loc = cfg.d_model, cfg.d_ff, cfg.n_experts // 2
+rng = np.random.RandomState(rank)
+x = rng.randn(48, D).astype(np.float32)
+rows = rng.randn(cfg.n_experts, 16, D).astype(np.float32)
+ct = rng.randn(48, D).astype(np.float32)
+w = {"router": np.random.RandomState(9).randn(D, cfg.n_experts) / 8}
+for k, shp in (("w1", (D, F)), ("w3", (D, F)), ("w2", (F, D))):
+    w[k] = rng.randn(e_loc, *shp) / np.sqrt(shp[0])
+outs = {}
+for dev in ("cuda", "cpu"):
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    xt = t(x).requires_grad_()
+    wt = {k: t(v).requires_grad_() for k, v in w.items()}
+    a2a = S.all_to_all_tp(t(rows), ctx, 0, 1)
+    o, aux = M.moe_mlp(xt, wt, cfg, ctx)
+    (torch.sum(o * t(ct)) + aux).backward()
+    outs[dev] = [a2a, o, aux, xt.grad] + [wt[k].grad for k in sorted(wt)]
+card, cpu = [[v.detach().cpu() for v in outs[d]] for d in ("cuda", "cpu")]
+assert torch.equal(card[0], cpu[0]), "all-to-all: card != CPU"
+assert card[0].shape == (cfg.n_experts // 2, 32, D)
+for i, (a, b) in enumerate(zip(card[1:], cpu[1:])):
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=str(i))
+dist.destroy_process_group()
+print("ok", rank)
+"""
+
+
+def test_moe_all_to_all_and_mlp_on_card(cuda):
+    """Two ranks sharing the card over gloo (the TP group, 4 experts
+    each): the tiled all-to-all on the card equals the CPU's bit for bit,
+    and ``moe_mlp`` (output, aux, the input's and weights' gradients) at
+    f32 within rtol 1e-5 (no TF32)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", _MOE_RANK, str(r),
+                               str(port)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-5000:]}"

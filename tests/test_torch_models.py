@@ -8,7 +8,7 @@ The same numpy-seeded inputs go through ``repro.models`` and
   rtol 1e-5;
 * every arch in the registry has the same metas, storage, ``y`` and
   telemetry shapes at dp 1, 4 and 8 (the encoder-decoder family raises in
-  both);
+  both); every family but the encoder-decoder builds a loss function;
 * the storage converters are bitwise, ``init_params`` allclose (its
   normal draws go through torch's ``erfinv``);
 * the whole loss of internvl2-smoke and glm4-9b-smoke, given the same
@@ -189,13 +189,22 @@ def test_metas_and_state_shapes_every_arch(dp):
 
 
 def test_forward_of_other_families_raises():
-    """The families without ported layers raise; tensor parallelism is
-    ported, so ``ShardCtx(tp=2)`` builds, with the reference's fields and
-    defaults."""
-    _, tctx = _ctx_pair()
-    for arch in ("granite-moe-1b-a400m", "mamba2-1.3b", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.make_loss_fn(TR.smoke_config(arch), tctx)
+    """Every family but the encoder-decoder builds a loss function in both
+    packages; the encoder-decoder's ``make_loss_fn`` raises ``ValueError``
+    in both (its loss is ``models/encdec.py``'s).  ``ShardCtx(tp=2)``
+    builds, with the reference's fields and defaults."""
+    jctx, tctx = _ctx_pair()
+    for arch in JR.ARCHS:
+        jcfg, tcfg = JR.smoke_config(arch), TR.smoke_config(arch)
+        if jcfg.family == "encdec":
+            for f, c, x in ((JT.make_loss_fn, jcfg, jctx),
+                            (TT.make_loss_fn, tcfg, tctx)):
+                with pytest.raises(ValueError):
+                    f(c, x)
+            continue
+        assert tcfg.family in TT.FORWARD_FAMILIES
+        assert callable(JT.make_loss_fn(jcfg, jctx))
+        assert callable(TT.make_loss_fn(tcfg, tctx))
     t, j = TS.ShardCtx(tp=2), JS.ShardCtx(tp=2)
     assert (t.tp, t.dp, t.world) == (j.tp, j.dp, j.world) == (2, 1, 2)
     for f in ("quantize_tp_grads", "seq_parallel", "grad_sync", "remat",

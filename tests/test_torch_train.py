@@ -78,6 +78,35 @@ def test_lr_at_bitwise():
 
 @pytest.mark.parametrize("name", ["adamw", "momentum"])
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_apply_update_chunked_equals_whole(monkeypatch, name, state_dtype):
+    """A leaf larger than ``UPDATE_CHUNK`` is updated over slices of its
+    last dim (bounded f64 temporaries): the same bits as in one piece, for
+    a stacked (L, 1, 1, shard) leaf and a top-level (1, 1, shard) one."""
+    rng = np.random.RandomState(2)
+    cfg = TO.OptConfig(name=name, state_dtype=state_dtype, warmup=5,
+                       decay_steps=100)
+    dt = getattr(torch, state_dtype)
+    params = {"s": _t(rng.randn(3, 1, 1, 1000).astype(np.float32)),
+              "t": _t(rng.randn(1, 1, 777).astype(np.float32))}
+    grads = {k: _t((1e-2 * rng.randn(*v.shape)).astype(np.float32))
+             for k, v in params.items()}
+    st = {k: {n: _t((1e-3 * rng.rand(*v.shape)).astype(np.float32)).to(dt)
+              for n, v in params.items()}
+          for k in (("m", "v") if name == "adamw" else ("m",))}
+    whole = TO.apply_update(params, grads, st, 7, cfg, torch.tensor(0.4))
+    monkeypatch.setattr(TO, "UPDATE_CHUNK", 256)
+    parts = TO.apply_update(params, grads, st, 7, cfg, torch.tensor(0.4))
+    for a, b in ((whole[0], parts[0]), *((whole[1][k], parts[1][k])
+                                         for k in st)):
+        for n in params:
+            assert torch.equal(a[n].view(torch.int16 if a[n].dtype ==
+                                         torch.bfloat16 else torch.int32),
+                               b[n].view(torch.int16 if b[n].dtype ==
+                                         torch.bfloat16 else torch.int32)), n
+
+
+@pytest.mark.parametrize("name", ["adamw", "momentum"])
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
 def test_apply_update_bitwise(name, state_dtype):
     """With f32 moments (the default) the update equals the reference's
     compiled update bit for bit, params and moments.  With bf16 moments
