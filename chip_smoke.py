@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's aggregation round, quantized collectives,
-FSDP and TP training of every model family, multi-round service,
-aggregation tree, continuous-round engine, flash attention and the
+FSDP and TP training and serving of every model family, multi-round
+service, aggregation tree, continuous-round engine, flash attention and the
 paper's algorithms on one CUDA card.
 
     python3 chip_smoke.py [--seed N]   # d = 277,845,504; 16 clients; 4 ranks
@@ -112,6 +112,32 @@ nothing of the JAX package.  The script
    at full width and depth (12 + 12 layers, 1,500 stub frames, 448
    decoder tokens) over four DP ranks, one loss and backward through
    ``make_encdec_loss_fn`` with every leaf's quantized sync;
+6e. serves (``models/serve.py``; no kernel runs there: the weights come
+   through the FSDP gather's bf16 forward and attention is plain torch, as
+   the reference's is plain jnp), four ranks on the card over gloo, each
+   run's bf16 parameters drawn on the card from ``--seed``, a seeded
+   prompt prefilled into a ``decode_32k`` cache of 32,768 positions (the
+   prefill's K/V moved into the decode layout by ``_place_prefill``), then
+   greedy decode steps, the first re-feeding the prompt's last token:
+   ``serve_glm4_tp4``, glm4-9b at full width and depth (40 layers,
+   9,399,435,264 parameters) on (dp 1, tp 4) — g1 2 KV-head groups x g2 2
+   sequence shards, so the ``wq`` subgroup gather and the flash-decoding
+   merge run — batch 16 (cut from 128), a 512-token prompt and 16 steps,
+   with the bf16 cache and then the int8 one (fed the bf16 run's tokens);
+   ``serve_granite_moe_tp``, granite-moe-1b-a400m at full width and depth
+   on (2, 2) (the DP weight gathers and ``_moe_decode``), batch 16, 512
+   and 8, both caches; ``serve_families``, mamba2-1.3b (8 layers),
+   recurrentgemma-9b (3 layers) and whisper-small (full depth, its encoder
+   over 1,500 stub frames) on (2, 2), batch 4, 64 and 4.  Checks: every
+   TP rank returns the same tokens, ids below the vocab plus tp (its
+   padding, the reference's own test's limit), every cache leaf of
+   ``cache_struct``'s shape and dtype and finite, and the int8 cache
+   within 2% of the bf16 cache's largest entry where both runs wrote the
+   entry from the same values.  Prints prefill s, each step's wall and its
+   parts (the FSDP gathers, the g2-subgroup and the TP collectives, the
+   rest), tokens/s, peak GB a rank, a step's bytes (weights and cache,
+   over the four ranks) against their HBM bound, the int8 cache's drift
+   by layer, and the lattice kernels' launches (none);
 7. runs the anchored multi-round service (``agg.service``) lockstep for
    three rounds at d = 277,845,504 (q = 16, bucket = 4096, y0 = 0.25),
    warm-started at ``base``; client i of round r sends
@@ -218,6 +244,16 @@ FAMILY_RUNS = (                  # (arch, layers, steps, optimizer state)
     ("recurrentgemma-9b", 3, 1, "bfloat16"),
 )
 WHISPER_DEC_SEQ = 448            # whisper-small's decoder tokens
+SERVE_S_MAX = 32_768             # decode_32k's cache positions
+# the serving phases' runs: batch cut from decode_32k's 128
+SERVE_GLM4 = [dict(arch="glm4-9b", layers=None, mesh=(1, 4), batch=16,
+                   prompt=512, new=16, kv_quant=(False, True))]
+SERVE_GRANITE = [dict(arch=MOE_ARCH, layers=None, mesh=(2, 2), batch=16,
+                      prompt=512, new=8, kv_quant=(False, True))]
+SERVE_FAMILIES = [dict(arch=a, layers=n, mesh=(2, 2), batch=4, prompt=64,
+                       new=4, kv_quant=(False,))
+                  for a, n in (("mamba2-1.3b", 8), ("recurrentgemma-9b", 3),
+                               ("whisper-small", None))]
 TP_HOP_N = 33_972_224            # the TP phase's largest DP hop (embedding)
 SERVICE_CLIENTS = 8              # clients per service round
 TREE_FANOUT = 4                  # edge tiers of the tree phase
@@ -2580,6 +2616,314 @@ def train_families(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 6e-6g: serving (prefill, then the sharded-KV greedy decode)
+# ---------------------------------------------------------------------------
+
+def _place_prefill(torch, SV, S, cache: dict, pcache: dict, P: int, cfg,
+                   ctx) -> None:
+    """Write a prefill's cache (the prompt's ``P`` positions, chunked over
+    the g2 subgroup by the prompt's length) into a decode cache (chunked by
+    S_max), in place: this rank gathers its KV group's prompt over its
+    subgroup and keeps the positions its chunk owns, quantizing them where
+    the cache is int8; the recurrent states, the window and the cross K/V
+    are the prefill's own."""
+    g1, g2 = SV.groups_of(cfg, ctx)
+    j = S.tp_index(ctx) % g2
+    for k, v in pcache.items():
+        if k not in ("k", "v"):
+            cache[k] = v
+            continue
+        full = S.all_gather_group(v, ctx, SV.seq_groups(cfg, ctx), axis=3)
+        s_loc = cache[k].shape[3]
+        lo, hi = j * s_loc, min(P, (j + 1) * s_loc)
+        if lo >= hi:
+            continue
+        part = full[:, :, :, lo:hi]
+        if cache[k].dtype == torch.int8:
+            part, cache[f"{k}_scale"][:, :, :, :hi - lo] = \
+                SV._quantize_kv(part)
+        cache[k][:, :, :, :hi - lo] = part
+
+
+def _serve_instruments(reg, F, S, SV) -> list:
+    """The decode step's timers: the FSDP gathers, the g2-subgroup
+    collectives (the ``wq`` gather, the softmax max and sum) and the TP
+    collectives (psums, the greedy pick's maxes, the MoE's all-to-alls and
+    gather)."""
+    pmax = SV.pmax_tp
+
+    def pmax_timed(x, ctx, groups=None):
+        key = "tp_s" if groups is None else "group_s"
+        return reg.timed(pmax, key)(x, ctx, groups)
+
+    return [(F, "_issue", reg.timed(F._issue, "gather_s")),
+            (F, "_gather_value", reg.timed(F._gather_value, "gather_s")),
+            (SV, "all_gather_group", reg.timed(SV.all_gather_group,
+                                               "group_s")),
+            (SV, "_psum", reg.timed(SV._psum, "group_s")),
+            (SV, "pmax_tp", pmax_timed),
+            (S, "_psum", reg.timed(S._psum, "tp_s")),
+            (S, "_all_gather_cat", reg.timed(S._all_gather_cat, "tp_s")),
+            (S, "_all_to_all", reg.timed(S._all_to_all, "tp_s"))]
+
+
+def _check_cache(torch, SV, cache: dict, struct: dict, kvq: bool,
+                 tag: str) -> None:
+    """Every leaf of ``cache_struct``'s shape, the K/V (and window) leaves
+    of ``cache_dtype``'s dtype, and every value finite (a layer at a time:
+    ``isfinite`` takes temporaries of the leaf's size)."""
+    for k, v in cache.items():
+        check(tuple(v.shape) == tuple(struct[k]) and
+              (k not in SV._IN_PLACE or v.dtype == SV.cache_dtype(k, kvq)),
+              f"{tag}: cache leaf {k} {tuple(v.shape)} {v.dtype} against "
+              f"{struct[k]}")
+        if v.is_floating_point():
+            check(all(bool(torch.isfinite(x).all()) for x in v),
+                  f"{tag}: cache leaf {k} holds non-finite values")
+
+
+def _serve_run(torch, rank: int, seed: int, run: dict, axes) -> dict:
+    """One model through the port's serving path on one mesh: its bf16
+    parameters drawn on the card (this rank's slices), a seeded prompt
+    prefilled into a ``SERVE_S_MAX``-position cache, then greedy decode
+    steps, once for each cache type of ``run["kv_quant"]``; the int8 run is
+    fed the bf16 run's tokens, so their caches hold the same positions.
+    Every check raises."""
+    import gc
+
+    from repro_torch import random as R
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.kernels import _build
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import serve as SV
+    from repro_torch.models import sharding as S
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    dp, tp = run["mesh"]
+    cfg = registry.config(run["arch"])
+    if run["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    ctx = S.ShardCtx(tp=tp, dp=dp, dp_axes=axes[0], tp_axis=axes[1])
+    di, ti = rank // tp, rank % tp
+    encdec = cfg.family == "encdec"
+    B, P, new = run["batch"], run["prompt"], run["new"]
+    b_loc = B // dp
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init = ED.init_encdec_params if encdec else T.init_params
+    params = init(cfg, ctx, R.PRNGKey(seed), dp_rank=di, tp_rank=ti,
+                  device=dev)
+    for g in params:                     # bf16 storage, one leaf at a time
+        for k in params[g]:
+            params[g][k] = params[g][k].to(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    metas = ED.encdec_metas(cfg, ctx) if encdec else T.all_metas(cfg, ctx)
+    n_layers = {"layers": T.n_scan_steps(cfg), "dec": cfg.n_layers,
+                "top": 1}
+    weight_bytes = 2 * sum(m.numel() * (n_layers[g] if m.scanned else 1)
+                           for g in metas if g != "enc"
+                           for m in metas[g].values())
+    gen = torch.Generator().manual_seed(seed + 1)
+    rows = slice(di * b_loc, (di + 1) * b_loc)
+    prompt = torch.randint(cfg.vocab, (B, P), generator=gen)[rows].to(dev)
+    frames = (torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen)
+              [rows].to(dev) if encdec else None)
+    key = R.PRNGKey(seed + 2)
+    g1, g2 = SV.groups_of(cfg, ctx)
+    j = ti % g2
+    out = dict(rank=rank, arch=run["arch"], layers=cfg.n_layers,
+               params=cfg.param_count(), init_s=init_s, g1=g1, g2=g2,
+               h_loc=SV.LY.local_heads(cfg, ctx), hg=cfg.n_heads // g1,
+               runs={})
+    kept, fed = None, None
+    reg = _Regions(torch)
+    for kvq in run["kv_quant"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = SV.cache_zeros(cfg, ctx, b_loc, SERVE_S_MAX, kv_quant=kvq,
+                               device=dev)
+        struct = SV.cache_struct(cfg, ctx, b_loc, SERVE_S_MAX,
+                                 kv_quant=kvq)
+        cache_bytes = sum(v.numel() * v.element_size()
+                          for v in cache.values())
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if encdec:
+            _, pcache = SV.make_encdec_prefill(cfg, ctx)(params, frames,
+                                                         prompt, key)
+        else:
+            _, pcache = SV.make_prefill(cfg, ctx)(params, prompt, key)
+        with torch.inference_mode():
+            _place_prefill(torch, SV, S, cache, pcache, P, cfg, ctx)
+        del pcache
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step = SV.make_serve_step(cfg, ctx, kv_quant=kvq)
+        tok = prompt[:, -1:].to(torch.int32)
+        steps, toks = [], []
+        with _patched(_serve_instruments(reg, F, S, SV)):
+            for s in range(new):
+                reg.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # the first step re-feeds the prompt's last token at its
+                # position: its output is the token after the prompt
+                nxt, cache = step(params, cache, tok, P - 1 + s, key)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                parts = {k: reg.s.get(k, 0.0)
+                         for k in ("gather_s", "group_s", "tp_s")}
+                steps.append(dict(wall_s=wall, **parts,
+                                  rest_s=wall - sum(parts.values())))
+                toks.append(nxt)
+                tok = (fed[s] if fed is not None else nxt)[:, None]
+        launches = dict(_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        toks = torch.stack(toks)                        # (new, b_loc)
+        peers = C._all_gather(toks, ctx.tp_axis) if tp > 1 else toks[None]
+        check(all(torch.equal(p, toks) for p in peers),
+              f"{run['arch']} rank {rank}: the TP ranks' tokens differ")
+        check(int(toks.min()) >= 0 and
+              int(toks.max()) < cfg.vocab + ctx.tp,
+              f"{run['arch']} rank {rank}: token ids past the vocab")
+        _check_cache(torch, SV, cache, struct, kvq,
+                     f"{run['arch']} rank {rank}")
+        # the written positions of this rank's chunk, [0, P - 1 + new):
+        # the int8 cache dequantized against the bf16 run's, over the
+        # bf16 cache's largest entry, where both runs wrote the entry from
+        # the same values (every layer at the prefill's positions, layer 0
+        # everywhere: its K/V are the fed token's) within the reference's
+        # 2%; elsewhere the entries' inputs have been through attention
+        # over the int8 cache, and their drift is printed by layer
+        s_loc = cache["k"].shape[3] if "k" in cache else 0
+        lo, hi = j * s_loc, min(P - 1 + new, (j + 1) * s_loc)
+        int8_err = int8_drift = None
+        if "k" in cache and not encdec and lo < hi:
+            if not kvq:
+                kept = {k: cache[k][:, :, :, :hi - lo].clone()
+                        for k in ("k", "v")}
+            else:
+                same, drift = 0.0, 0.0
+                n_pre = max(0, min(P - 1, hi) - lo)
+                for k in ("k", "v"):
+                    deq = (cache[k][:, :, :, :hi - lo].to(torch.float32)
+                           * (cache[f"{k}_scale"][:, :, :, :hi - lo]
+                              / 127.0)[..., None])
+                    ref = kept[k].to(torch.float32)
+                    err = (deq - ref).abs() / max(float(ref.abs().max()),
+                                                  1e-6)
+                    same = max(same, float(err[0].max()),
+                               float(err[:, :, :, :n_pre].max())
+                               if n_pre else 0.0)
+                    drift = torch.maximum(torch.as_tensor(drift),
+                                          err.amax(dim=(1, 2, 3, 4)).cpu())
+                int8_err, int8_drift = same, drift.tolist()
+                check(int8_err < 0.02,
+                      f"{run['arch']} rank {rank}: the int8 cache is "
+                      f"{int8_err:.4f} of the bf16 cache's largest entry "
+                      f"away from it where both runs wrote the same "
+                      f"values (the limit is 0.02)")
+        walls = sorted(st["wall_s"] for st in steps)
+        med = statistics.median(walls)
+        out["runs"][str(kvq)] = dict(
+            kv_quant=kvq, prefill_s=prefill_s, steps=steps,
+            step_median_s=med, step_min_s=walls[0], step_max_s=walls[-1],
+            tokens_per_s=B / med, peak_gb=peak_gb, cache_bytes=cache_bytes,
+            weight_bytes=weight_bytes, launches=launches,
+            int8_rel_err=int8_err, int8_drift_by_layer=int8_drift,
+            tokens=toks.cpu().tolist(),
+            int8_tokens_equal_bf16=(None if fed is None else
+                                    float((toks == fed).float().mean())))
+        if fed is None:
+            fed = toks
+        del cache, step
+    return out
+
+
+def serve_rank_main(torch, rank: int, world: int, seed: int, runs) -> list:
+    """One rank's share of a serving phase: each run of ``runs`` on its
+    mesh (every rank makes every mesh's groups, in one order)."""
+    import gc
+
+    from repro_torch.launch.mesh import mesh_axes
+
+    meshes = {}
+    for run in runs:
+        dp, tp = run["mesh"]
+        if run["mesh"] not in meshes:
+            dp_axes, tp_axis = mesh_axes((dp, tp))
+            meshes[run["mesh"]] = (dp_axes, tp_axis)
+    out = []
+    for run in runs:
+        out.append(_serve_run(torch, rank, seed, run, meshes[run["mesh"]]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_phase(name: str, runs, seed: int) -> None:
+    """Spawn the ranks for one serving phase and print what they
+    measured: per run and cache type, prefill s, each step's wall and its
+    parts (gathers, subgroup collectives, TP collectives, the rest),
+    tokens/s, peak GB a rank, the bytes a step must read over the four
+    ranks (weights and cache) and their bound at ``HBM_BYTES_PER_S``, and
+    the share of it the median step reaches."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(serve_rank_main, (seed, runs), name)
+    for i, run in enumerate(runs):
+        rs = [r[i] for r in ranks]
+        for kvq in run["kv_quant"]:
+            per = [r["runs"][str(kvq)] for r in rs]
+            nbytes = sum(p["weight_bytes"] + p["cache_bytes"] for p in per)
+            bound_s = nbytes / HBM_BYTES_PER_S
+            med = max(p["step_median_s"] for p in per)
+            lattice = {k: sum(p["launches"][k] for p in per)
+                       for k in COLLECTIVE_KERNELS}
+            say(name, arch=run["arch"], layers=rs[0]["layers"],
+                params=rs[0]["params"], mesh=dict(dp=run["mesh"][0],
+                                                  tp=run["mesh"][1]),
+                g1=rs[0]["g1"], g2=rs[0]["g2"], h_loc=rs[0]["h_loc"],
+                hg=rs[0]["hg"], batch=run["batch"], s_max=SERVE_S_MAX,
+                prompt=run["prompt"], new_tokens=run["new"], kv_quant=kvq,
+                init_s=max(r["init_s"] for r in rs),
+                prefill_s=max(p["prefill_s"] for p in per),
+                step_median_s=med,
+                step_range_s=[min(p["step_min_s"] for p in per),
+                              max(p["step_max_s"] for p in per)],
+                tokens_per_s=run["batch"] / med,
+                step_bytes=nbytes, bound_ms=bound_s * 1e3,
+                share_of_bound=bound_s / med,
+                lattice_launches=lattice,
+                int8_rel_err=[p["int8_rel_err"] for p in per],
+                int8_drift_by_layer=[p["int8_drift_by_layer"] for p in per],
+                int8_tokens_equal_bf16=per[0]["int8_tokens_equal_bf16"],
+                tokens=per[0]["tokens"],
+                ranks=[dict(rank=r["rank"], peak_gb=p["peak_gb"],
+                            cache_gb=p["cache_bytes"] / 1e9,
+                            weight_gb=p["weight_bytes"] / 1e9,
+                            steps=p["steps"]) for r, p in zip(rs, per)])
+    say(name + "_phase", wall_s=time.perf_counter() - t0)
+
+
+def serve_glm4_tp4(seed: int) -> None:
+    _serve_phase("serve_glm4_tp4", SERVE_GLM4, seed)
+
+
+def serve_granite_moe_tp(seed: int) -> None:
+    _serve_phase("serve_granite_moe_tp", SERVE_GRANITE, seed)
+
+
+def serve_families(seed: int) -> None:
+    _serve_phase("serve_families", SERVE_FAMILIES, seed)
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-9: the multi-round service, the tree and the engine
 # ---------------------------------------------------------------------------
 
@@ -3318,14 +3662,16 @@ def main() -> int:
     train = train_internvl2_tp(args.seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
     tp_kernel_checks(torch, args.seed)
-    for phase in (train_granite_moe_tp, train_families):
+    for phase in (train_granite_moe_tp, train_families, serve_glm4_tp4,
+                  serve_granite_moe_tp, serve_families):
         torch.cuda.empty_cache()        # four ranks share the card next
         say("parent_memory", before=phase.__name__,
             allocated_gb=torch.cuda.memory_allocated() / 1e9,
             reserved_gb=torch.cuda.memory_reserved() / 1e9,
             card_free_gb=torch.cuda.mem_get_info()[0] / 1e9)
         got = phase(args.seed)
-        counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}
+        if got is not None:             # the serving phases launch none
+            counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}
     for phase in (agg_service, agg_tree, agg_engine_small):
         got = phase(torch, args.seed)
         counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}

@@ -6,9 +6,10 @@ included) to :func:`round_spec`, a reference ``QState``'s arrays to
 :func:`qstate_from_numpy`, and numpy arrays (an anchor, a client vector)
 to :func:`tensor`; both sides of a comparison are then built from the same
 numbers.  :func:`train_state_from_numpy` carries a reference training
-state (its global storage arrays) across as one rank's slices, and
+state (its global storage arrays) across as one rank's slices,
 :func:`params_from_numpy` a parameter tree, the encoder-decoder's
-``{"enc", "dec", "top"}`` one included.
+``{"enc", "dec", "top"}`` one included, and :func:`cache_from_numpy` a
+serving cache.
 """
 from __future__ import annotations
 
@@ -97,3 +98,30 @@ def train_state_from_numpy(state_np: dict, cfg, ctx, rank: int,
                   for grp, leaves in state_np["y"].items()},
             "step": int(np.asarray(state_np["step"])),
             "key": (int(key[0]), int(key[1]))}
+
+
+def cache_from_numpy(cache_np: dict, dp_rank: int, tp_rank: int, dp: int,
+                     device=None) -> dict:
+    """A reference serving cache of global layout — each leaf ``(tp, L,
+    B_global, ...)``, the hybrid's ``tail*`` leaves ``(tp, B_global,
+    ...)``, the batch sharded over the ``dp`` DP ranks — as the local cache
+    of the rank at DP index ``dp_rank`` and TP index ``tp_rank``: its TP
+    row and its ``B_global / dp`` batch rows, each leaf in
+    ``serve.cache_dtype`` (int8 K/V where ``k_scale`` is present) on
+    ``device`` (the CUDA device unless another is named).  Numpy has no
+    bf16: bf16 leaves come as float32 or ml_dtypes' bfloat16."""
+    from repro_torch.models.serve import cache_dtype
+
+    dev = resolve_device(device)
+    quant = "k_scale" in cache_np
+    out = {}
+    for k, v in cache_np.items():
+        a = np.asarray(v)[tp_rank]
+        if a.dtype not in (np.int8, np.float32):
+            a = a.astype(np.float32)
+        bpos = 0 if k.startswith("tail") else 1
+        b_loc = a.shape[bpos] // dp
+        a = np.take(a, range(dp_rank * b_loc, (dp_rank + 1) * b_loc),
+                    axis=bpos)
+        out[k] = tensor(a, dev, cache_dtype(k, quant))
+    return out

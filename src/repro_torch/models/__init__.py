@@ -11,4 +11,6 @@
 ``ssm``         — the Mamba-2 SSD mixer (chunked and one-token step).
 ``rglru``       — the RG-LRU recurrent block (parallel prefix scan).
 ``encdec``      — the encoder-decoder (whisper) metas, init and loss.
+``serve``       — the serving path: caches, prefill and the sharded-KV
+                  decode step of every family.
 """

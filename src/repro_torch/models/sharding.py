@@ -564,12 +564,37 @@ def psum_tp(x, ctx: ShardCtx):
     return _PsumTP.apply(x, ctx) if ctx.tp > 1 else x
 
 
-def pmax_tp(x, ctx: ShardCtx):
-    """Elementwise max over the TP ranks (no gradient, as the reference's
+def pmax_tp(x, ctx: ShardCtx, groups=None):
+    """Elementwise max over the TP ranks, or over this rank's group of TP
+    indices when ``groups`` is given (no gradient, as the reference's
     callers stop it)."""
     if ctx.tp == 1:
         return x
-    return torch.amax(_tp_gather_stack(x.detach(), ctx), dim=0)
+    parts = _tp_gather_stack(x.detach(), ctx)
+    if groups is not None:
+        me = tp_index(ctx)
+        parts = parts[list(next(g for g in groups if me in g))]
+    return torch.amax(parts, dim=0)
+
+
+def all_gather_group(x: torch.Tensor, ctx: ShardCtx, groups, axis: int
+                     ) -> torch.Tensor:
+    """Tiled all-gather over this rank's group of TP indices (``groups``
+    partitions them; ``axis_index_groups``): the members' ``x``
+    concatenated on ``axis`` in the group's order.  One ``ppermute`` round
+    per offset within the groups, every group at once, so each rank
+    receives only its group's slices (no gradient)."""
+    me = tp_index(ctx)
+    mine = next(g for g in groups if me in g)
+    n, at = len(mine), mine.index(me)
+    x = x.detach().contiguous()
+    got = [None] * n
+    got[at] = x
+    for k in range(1, n):
+        perm = [(g[a], g[(a + k) % len(g)]) for g in groups
+                for a in range(len(g))]
+        got[(at - k) % n] = C._ppermute(x, perm, ctx.tp_axis)
+    return torch.cat(got, dim=axis)
 
 
 def all_gather_tp(x, ctx: ShardCtx, axis: int = 0):

@@ -617,3 +617,61 @@ def test_moe_all_to_all_and_mlp_on_card(cuda):
                 p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r}:\n{log[-5000:]}"
+
+
+def test_serve_step_on_card_matches_cpu(cuda):
+    """glm4-smoke's serve step, one rank, 6 teacher-forced steps with the
+    bf16 and the int8 cache: the card's caches within
+    ``test_torch_serve.py``'s tolerances of the CPU's (5e-2 of the largest
+    entry; int8 within 4), its tokens the CPU's except on rows whose top
+    two logits (the CPU's) are within 1e-2, no more than one in eight."""
+    from repro_torch import random as R
+    from repro_torch.configs import registry
+    from repro_torch.models import serve as SV
+    from repro_torch.models import sharding as S
+    from repro_torch.models import transformer as T
+
+    cfg = registry.smoke_config("glm4-9b")
+    ctx = S.ShardCtx()
+    params = {g: {k: v.to(torch.bfloat16) for k, v in t.items()} for g, t in
+              T.init_params(cfg, ctx, R.PRNGKey(0), device="cpu").items()}
+    feeds = np.random.RandomState(3).randint(0, cfg.vocab, (6, 4, 1))
+    greedy = SV._greedy
+    for kvq in (False, True):
+        got = {}
+        for dev in ("cpu", cuda):
+            gaps = []
+
+            def recorded(x, head, ctx_):
+                top = torch.topk(x.float() @ head.float().T, 2).values
+                gaps.append(((top[:, 0] - top[:, 1])
+                             / top[:, 0].abs()).cpu().numpy())
+                return greedy(x, head, ctx_)
+
+            SV._greedy = recorded
+            try:
+                p = {g: {k: v.to(dev) for k, v in t.items()}
+                     for g, t in params.items()}
+                cache = SV.cache_zeros(cfg, ctx, 4, 16, kv_quant=kvq,
+                                       device=dev)
+                step = SV.make_serve_step(cfg, ctx, kv_quant=kvq)
+                toks = []
+                for t, feed in enumerate(feeds):
+                    nxt, cache = step(p, cache, _t(feed, dev), t,
+                                      R.PRNGKey(1))
+                    toks.append(nxt.cpu().numpy())
+            finally:
+                SV._greedy = greedy
+            got[str(dev)] = (np.stack(toks), cache, np.stack(gaps))
+        (t_cpu, c_cpu, gap), (t_gpu, c_gpu, _) = got["cpu"], got[str(cuda)]
+        for k, want in c_cpu.items():
+            have = c_gpu[k].cpu()
+            assert have.dtype == want.dtype, k
+            err = (have.float() - want.float()).abs().max()
+            if want.dtype == torch.int8:
+                assert float(err) <= 4, (k, float(err))
+            else:
+                assert float(err) <= 5e-2 * float(want.float().abs().max()), k
+        differ = t_cpu != t_gpu
+        assert not np.any(differ & (gap >= 1e-2)), (t_cpu, t_gpu, gap)
+        assert differ.sum() * 8 <= differ.size

@@ -14,7 +14,11 @@ One JAX subprocess with four emulated CPU devices runs, on a (2, 2) mesh
   in f32; the quantized syncs around the same forward and backward are
   ``tests/test_torch_tp_train.py``'s and ``test_torch_moe_tp.py``'s, and
   would take this file's reference three times as long to compile);
-  recurrentgemma-smoke's two unscanned tail layers run there too.
+  recurrentgemma-smoke's two unscanned tail layers run there too;
+* on a (1, 2) mesh of two of the devices, whisper-smoke's loss and
+  gradient norm (the training step's: the replicated leaves counted
+  once), with the f32 sync and no sequence parallelism, as the
+  reference's launcher sets them for the encoder-decoder.
 
 Four port ranks over a ``gloo`` group (``launch/mesh.mesh_axes((2, 2))``)
 run the same.  Held: the units within rtol 1e-5 at f32 on every rank (and
@@ -25,7 +29,10 @@ scatter around each mixer, the window under SP); the trainers' losses
 within rtol 2e-2 and gnorm within 5e-2 (``tests/test_torch_tp_train.py``'s
 tolerances), every rank's loss and
 gnorm the same bits, and every replicated leaf (params, moments, y) the
-same bits on the two TP ranks of a DP group.
+same bits on the two TP ranks of a DP group; whisper's loss within
+rtol 2e-2 and its gradient norm within 5e-2 on every rank (each TP pair
+of the four ranks is a (1, 2) mesh), the replicated leaves' gradients the
+same bits on both ranks of a pair.
 """
 import os
 import subprocess
@@ -39,6 +46,7 @@ import pytest
 
 import repro  # noqa: F401  (jax compatibility shims)
 from repro.configs import registry as JRg
+from repro.models import encdec as JE
 from repro.models import sharding as JS
 from repro.models import transformer as JT
 from repro.train import checkpoint as JCk
@@ -50,6 +58,7 @@ ROOT = Path(__file__).resolve().parents[1]
 STEPS, SEQ, LIMIT_S = 3, 24, 300
 ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
 B_UNIT = 2                       # sequences per DP rank in the unit check
+ENCDEC = "whisper-small"
 
 
 def _bits(a):
@@ -99,6 +108,16 @@ def _reference_inputs(path):
         for sp, s_loc in ((False, SEQ), (True, SEQ // 2)):
             flat[f"{arch}/ct/{sp}"] = rng.randn(2, 2, B_UNIT, s_loc,
                                                 D).astype(np.float32)
+    cfg = JRg.smoke_config(ENCDEC)
+    ctx = JS.ShardCtx(tp=2, dp=1, grad_sync="fp32")
+    params = JE.init_encdec_params(cfg, ctx, jax.random.PRNGKey(4))
+    for k, v in JCk._flatten(jax.tree.map(np.asarray, params)).items():
+        flat[f"{ENCDEC}/params/{k}"] = v
+    flat[f"{ENCDEC}/frames"] = rng.randn(2, cfg.enc_seq,
+                                         cfg.d_model).astype(np.float32)
+    for k in ("tokens", "targets"):
+        flat[f"{ENCDEC}/{k}"] = rng.randint(0, cfg.vocab,
+                                            (2, SEQ)).astype(np.int32)
     data = JD.DataConfig(vocab=JRg.smoke_config(ARCHS[0]).vocab,
                          seq_len=SEQ, global_batch=2)
     assert all(JRg.smoke_config(a).vocab == data.vocab for a in ARCHS)
@@ -168,6 +187,44 @@ for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
     tr.train()
     for f in ("loss", "gnorm"):
         res[f"trainer/{arch}/{f}"] = np.asarray([h[f] for h in tr.history])
+
+# whisper-smoke at (1, 2): the loss and the training step's gradient norm
+from repro.models import encdec as ED
+from repro.models.sharding import storage_spec
+cfg = registry.smoke_config("whisper-small")
+ctx = ShardCtx(tp=2, dp=1, grad_sync="fp32")
+metas = ED.encdec_metas(cfg, ctx)
+mesh12 = jax.make_mesh((1, 2), ("data", "model"), devices=jax.devices()[:2],
+                       axis_types=(jax.sharding.AxisType.Auto,) * 2)
+pspec = {g: {k: storage_spec(m, ctx) for k, m in metas[g].items()}
+         for g in metas}
+params = {g: {k: z[f"whisper-small/params/{g}/{k}"] for k in metas[g]}
+          for g in metas}
+batch = {"frames": z["whisper-small/frames"],
+         "tokens": z["whisper-small/tokens"],
+         "targets": z["whisper-small/targets"],
+         "mask": np.ones(z["whisper-small/tokens"].shape, np.float32)}
+loss_fn = ED.make_encdec_loss_fn(cfg, ctx)
+
+
+@partial(jax.shard_map, mesh=mesh12, in_specs=(pspec, P()),
+         out_specs=(P(), P()), check_vma=False)
+def encdec_step(p, b):
+    (_, m), g = jax.value_and_grad(loss_fn, has_aux=True)(
+        p, ED.encdec_tele_zeros(cfg, ctx), b, jax.random.PRNGKey(5),
+        ED.encdec_y_init(cfg, ctx))
+    sq = jnp.zeros((), jnp.float32)
+    for grp in g:
+        for name, gg in g[grp].items():
+            t = jnp.sum(gg.astype(jnp.float32) ** 2)
+            if not metas[grp][name].tp_replicated:
+                t = jax.lax.psum(t, "model")
+            sq = sq + t
+    return m["loss"], jnp.sqrt(sq)
+
+
+loss, gn = jax.jit(encdec_step)(params, batch)
+res["encdec/loss"], res["encdec/gnorm"] = np.asarray(loss), np.asarray(gn)
 np.savez(out, **res)
 """
 
@@ -192,6 +249,7 @@ dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         world_size=4, rank=rank,
                         timeout=datetime.timedelta(seconds=120))
 dp_axes, tp_axis = mesh_axes((2, 2))
+dp12, tp12 = mesh_axes((2, 1, 2))       # each TP pair a (1, 2) mesh
 dp_idx, tp_idx = rank // 2, rank % 2
 z = dict(np.load(inp))
 t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
@@ -259,6 +317,45 @@ for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
                 res[f"repl/{arch}/y/{g}/{k}"] = st["y"][g][k].numpy()
                 for mk, mv in st["opt"].items():
                     res[f"repl/{arch}/{mk}/{g}/{k}"] = mv[g][k].numpy()
+
+# whisper-smoke at (1, 2): the f32 sync, no SP
+from repro_torch import random as R
+from repro_torch.models import encdec as ED
+cfg = registry.smoke_config("whisper-small")
+ctx = S.ShardCtx(tp=2, dp=1, dp_axes=dp12[1:], tp_axis=tp12,
+                 grad_sync="fp32")
+metas = ED.encdec_metas(cfg, ctx)
+p_np = convert.params_from_numpy(unflat("whisper-small/params"), 0,
+                                 device="cpu", tp_rank=tp_idx)
+
+
+def leaves(tree):
+    return {g: {k: ([v[i].clone().requires_grad_()
+                     for i in range(v.shape[0])] if metas[g][k].scanned
+                    else v.clone().requires_grad_()) for k, v in t.items()}
+            for g, t in tree.items()}
+
+
+p_in = leaves(p_np)
+t_in = leaves(ED.encdec_tele_zeros(cfg, ctx, device="cpu"))
+batch = {k: t(z[f"whisper-small/{k}"]) for k in ("frames", "tokens",
+                                                  "targets")}
+batch["mask"] = torch.ones(batch["tokens"].shape)
+loss, m = ED.make_encdec_loss_fn(cfg, ctx)(
+    p_in, t_in, batch, R.PRNGKey(5), ED.encdec_y_init(cfg, ctx, device="cpu"))
+loss.backward()
+sq = {True: 0.0, False: 0.0}
+repl = []
+for g in metas:
+    for k, meta in metas[g].items():
+        v = p_in[g][k]
+        for x in (v if isinstance(v, list) else [v]):
+            sq[meta.tp_replicated] += float(torch.sum(x.grad.double() ** 2))
+            if meta.tp_replicated:
+                repl.append(x.grad.reshape(-1))
+res["encdec/loss"] = np.asarray(float(m["loss"]))
+res["encdec/sq_repl"], res["encdec/sq_shard"] = sq[True], sq[False]
+res["encdec/repl_grads"] = torch.cat(repl).numpy()
 np.savez(out, **res)
 dist.destroy_process_group()
 """
@@ -366,3 +463,22 @@ def test_replicated_leaves_equal_across_tp_ranks(runs, arch):
         for k in a:
             if k.startswith(pre):
                 assert _bits(a[k]).tobytes() == _bits(b[k]).tobytes(), (d, k)
+
+
+def test_encdec_at_tp2_matches_reference(runs):
+    """whisper-smoke at (dp 1, tp 2), the f32 sync, no SP: the loss within
+    rtol 2e-2 and the gradient norm (the replicated leaves counted once)
+    within 5e-2 on both ranks of each TP pair; the replicated leaves'
+    gradients (TP-psummed) the same bits on both ranks of a pair."""
+    jres, ranks = runs
+    for pair in ((0, 1), (2, 3)):
+        a, b = (ranks[r] for r in pair)
+        assert _bits(a["encdec/repl_grads"]).tobytes() == \
+            _bits(b["encdec/repl_grads"]).tobytes(), pair
+        gn = np.sqrt(a["encdec/sq_shard"] + b["encdec/sq_shard"]
+                     + a["encdec/sq_repl"])
+        assert np.isfinite(gn) and gn > 0
+        np.testing.assert_allclose(gn, jres["encdec/gnorm"], rtol=5e-2)
+        for r in (a, b):
+            np.testing.assert_allclose(float(r["encdec/loss"]),
+                                       float(jres["encdec/loss"]), rtol=2e-2)

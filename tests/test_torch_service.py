@@ -359,17 +359,25 @@ def test_helpers_run_on_the_card_unless_asked(name, monkeypatch):
     torch.testing.assert_close(fn(device="cpu"), want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("pkg", ["agg", "dist", "kernels", "core"])
+@pytest.mark.parametrize("pkg", ["agg", "dist", "kernels", "core",
+                                 "models"])
 def test_package_exports_match_reference(pkg):
     """Each port package binds every name its reference ``__init__``
     binds, and has the reference's ``__all__`` where the reference defines
-    one."""
+    one; a reference package with no ``__init__`` (``models``) exports its
+    modules, and the port's has a module of each name."""
     import importlib
 
+    ref_dir = ROOT / "src" / "repro" / pkg
+    if not (ref_dir / "__init__.py").exists():
+        mods = sorted(p.stem for p in ref_dir.glob("*.py"))
+        assert mods, pkg
+        for m in mods:
+            importlib.import_module(f"repro_torch.{pkg}.{m}")
+        return
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
-    tree = ast.parse((ROOT / "src" / "repro" / pkg / "__init__.py")
-                     .read_text())
+    tree = ast.parse((ref_dir / "__init__.py").read_text())
     names = set()
     for node in tree.body:
         if isinstance(node, ast.ImportFrom):
