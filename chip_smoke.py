@@ -54,7 +54,7 @@ nothing of the JAX package.  The script
    from 256 to 4); ZeRO-3 with prefetched bf16 gathers and remat, the
    gradient of every one of the 219 leaves reduce-scattered by packed
    q = 16 recursive halving (bucket 4096, unrotated) through the encode
-   and single-decode kernels; AdamW at lr 3e-4, 3 steps, no restart
+   and single-decode kernels; AdamW at lr 3e-4, 2 steps, no restart
    allowed, a checkpoint at the end.  Checks: a finite loss with the same
    bits on every rank; no restart; the bytes each rank sends per step ==
    ``wire_bytes_step``; one leaf-sync order on every rank; encode and
@@ -92,7 +92,7 @@ nothing of the JAX package.  The script
    sequence parallel (each TP rank routes 2,048 of its DP rank's 4,096
    tokens), 16 experts a TP rank behind two tiled all-to-alls a layer,
    the replicated leaves' gradients (the router's among them) psummed
-   over TP through the quantized butterfly, otherwise as phase 6b, 3
+   over TP through the quantized butterfly, otherwise as phase 6b, 2
    steps, no checkpoint.  Checks: a finite loss and ``aux`` on every rank
    at every step; the replicated leaves bitwise equal on the two TP ranks
    after every step; the bytes == the wire accounting; launches == DP
@@ -214,6 +214,7 @@ import shutil
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -232,13 +233,13 @@ CLIENTS = 16                     # clients per full-width round
 WORLD = 4                        # ranks of the collectives phase, one card
 RANK_TIMEOUT_S = 600             # a rank that takes longer fails the run
 SERVICE_ROUNDS = 3               # anchored rounds of the service phase
-TRAIN_STEPS = 3                  # steps of the training phase
+TRAIN_STEPS = 2                  # steps of the training phase (cut from 3)
 TRAIN_SEQ = 4096                 # train_4k's sequence (one per rank)
 TRAIN_HOP_N = 67_944_448         # the embedding's first RH hop (internvl2-1b)
 TP_MESH = (2, 2)                 # (dp, tp) of the TP phase, one card
-TRAIN_TP_STEPS = 3               # steps of the TP phase
+TRAIN_TP_STEPS = 2               # steps of the TP phase (cut from 3)
 MOE_ARCH = "granite-moe-1b-a400m"  # the MoE phase's model (full size)
-MOE_STEPS = 3                    # steps of the MoE phase
+MOE_STEPS = 2                    # steps of the MoE phase (cut from 3)
 FAMILY_RUNS = (                  # (arch, layers, steps, optimizer state)
     ("mamba2-1.3b", 8, 2, "float32"),
     ("recurrentgemma-9b", 3, 1, "bfloat16"),
@@ -1195,7 +1196,6 @@ def _rank_entry(main, rank: int, world: int, port: int, args: tuple,
     ``main(torch, rank, world, *args)``, and puts ``(rank, "ok", result)``
     or ``(rank, "error", traceback)`` on the queue."""
     import datetime
-    import os
     import traceback
 
     try:
@@ -1271,6 +1271,68 @@ def _spawn_ranks(main, args: tuple, what: str) -> list:
                 p.kill()
                 p.join()
     return [results[r] for r in range(WORLD)]
+
+
+def adopt_orphans() -> None:
+    """Make this process the parent of every orphan among its descendants
+    (Linux ``PR_SET_CHILD_SUBREAPER``), so that ``stop_children`` also
+    finds a process whose own parent, a rank, has exited."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    check(libc.prctl(36, 1, 0, 0, 0) == 0,
+          f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+
+
+def _children() -> "dict[int, str]":
+    """``{pid: command line}`` of this process's children, from ``/proc``."""
+    me, out = os.getpid(), {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+            cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ")
+        except OSError:                 # it ended while we looked
+            continue
+        # the parent's pid is the second field after the command's ")"
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            out[int(d.name)] = cmd.decode(errors="replace").strip()
+    return out
+
+
+def stop_children(grace_s: float = 10.0) -> "list[str]":
+    """Stop every process this one started that still runs, and reap it:
+    multiprocessing's resource tracker by closing its pipe (it ignores
+    SIGTERM), every other child by SIGTERM, then SIGKILL after
+    ``grace_s``.  Repeats until no child is left, since a stopped child's
+    orphans come to this process.  Returns the command lines stopped."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    stopped = []
+    while kids := _children():
+        stopped += kids.values()
+        for pid in kids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGTERM)
+        deadline = time.monotonic() + grace_s
+        left = set(kids)
+        while left and time.monotonic() < deadline:
+            for pid in list(left):
+                with contextlib.suppress(ChildProcessError):
+                    if os.waitpid(pid, os.WNOHANG)[0] == 0:
+                        continue
+                left.discard(pid)
+            time.sleep(0.05)
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, 0)
+    return stopped
 
 
 def collectives(seed: int) -> dict:
@@ -3618,6 +3680,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    adopt_orphans()
+    try:
+        return smoke(torch, args.seed)
+    finally:
+        stop_children()
+
+
+def smoke(torch, seed: int) -> int:
+    """Every phase, then the ``kernels`` line and the last line."""
     t_start = time.perf_counter()
 
     smi = subprocess.run(
@@ -3651,17 +3722,17 @@ def main() -> int:
     spec = wire.RoundSpec(round_id=1, d=FULL_D,
                           cfg=QSyncConfig(q=16, bucket=4096))
     checks = kernel_checks(torch, spec.padded, spec.cfg.bucket, CLIENTS,
-                           args.seed)
-    counts = rounds_ab(torch, FULL_D, CLIENTS, args.seed)
+                           seed)
+    counts = rounds_ab(torch, FULL_D, CLIENTS, seed)
     torch.cuda.empty_cache()
-    coll = collectives(args.seed)
+    coll = collectives(seed)
     counts = {k: counts[k] + coll[k] for k in COLLECTIVE_KERNELS}
-    train = train_internvl2(args.seed)
+    train = train_internvl2(seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
-    train_kernel_checks(torch, args.seed)
-    train = train_internvl2_tp(args.seed)
+    train_kernel_checks(torch, seed)
+    train = train_internvl2_tp(seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
-    tp_kernel_checks(torch, args.seed)
+    tp_kernel_checks(torch, seed)
     for phase in (train_granite_moe_tp, train_families, serve_glm4_tp4,
                   serve_granite_moe_tp, serve_families):
         torch.cuda.empty_cache()        # four ranks share the card next
@@ -3669,17 +3740,17 @@ def main() -> int:
             allocated_gb=torch.cuda.memory_allocated() / 1e9,
             reserved_gb=torch.cuda.memory_reserved() / 1e9,
             card_free_gb=torch.cuda.mem_get_info()[0] / 1e9)
-        got = phase(args.seed)
+        got = phase(seed)
         if got is not None:             # the serving phases launch none
             counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}
     for phase in (agg_service, agg_tree, agg_engine_small):
-        got = phase(torch, args.seed)
+        got = phase(torch, seed)
         counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}
-    small_rounds(torch, args.seed)
-    host_costs(torch, FULL_D, args.seed)
-    for name, (entry, launches) in attention(torch, args.seed).items():
+    small_rounds(torch, seed)
+    host_costs(torch, FULL_D, seed)
+    for name, (entry, launches) in attention(torch, seed).items():
         checks[name], counts[name] = entry, launches
-    paper_algorithms(torch, args.seed)
+    paper_algorithms(torch, seed)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3689,7 +3760,8 @@ def main() -> int:
             launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    say("done", seconds=time.perf_counter() - t_start)
+    say("done", seconds=time.perf_counter() - t_start,
+        stopped_processes=stop_children())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import datetime
 import math
+import os
 
 import torch
 import torch.distributed as dist
@@ -28,9 +29,12 @@ def init_process(rank: int, world: int, addr: str, *, device: str = "cuda",
                  timeout_s: float = 600.0) -> str:
     """Join the default group at ``addr`` (``tcp://host:port``); returns
     the backend.  With one rank per card, rank r uses card r; when ranks
-    share, every rank uses card 0."""
+    share, every rank uses card 0.  On the CPU the ranks share the host's
+    cores, each taking its share of the threads."""
     backend = backend_for(world, device)
-    if device != "cpu":
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    else:
         torch.cuda.set_device(rank if backend == "nccl" else 0)
     dist.init_process_group(backend, init_method=addr, world_size=world,
                             rank=rank,
