@@ -49,7 +49,10 @@ nothing of the JAX package.  The script
    finished within ``RANK_TIMEOUT_S``, fails the run;
 6. trains internvl2-1b at full width and depth (24 layers, d_model 896,
    vocab 151,655, 256 stub image tokens; 629.6 M parameters) with the
-   port's ``Trainer``: four ranks, one process each on the one card, over
+   port's ``Trainer`` running the step that the cell builder
+   (``launch/steps.train_cell("internvl2-1b", "train_4k", (4, 1))``) gives,
+   from a state and batch of the cell's local structs: four ranks, one
+   process each on the one card, over
    gloo; one ``train_4k`` sequence of 4,096 tokens per rank (the batch cut
    from 256 to 4); ZeRO-3 with prefetched bf16 gathers and remat, the
    gradient of every one of the 219 leaves reduce-scattered by packed
@@ -64,9 +67,21 @@ nothing of the JAX package.  The script
    unpacked step at 2 layers equal bit for bit; the FSDP backward at
    d = 2^18 on the card == on the CPU.  Prints each step's wall, gather,
    sync (and the embedding's and head's share), data and loss, each
-   rank's peak device memory; then holds the encode and single decode
-   against their plain versions at the path's largest hop (67,944,448
-   coordinates);
+   rank's peak device memory; the serial and the prefetching step run
+   under ``torch.profiler`` (their times include its cost), and the
+   ``train_trace`` line gives rank 0's device idle share over each and the
+   share of its time in collective calls with no kernel of its own
+   running.  Then it holds the encode and single decode against their
+   plain versions at the path's largest hop (67,944,448 coordinates);
+6a. while the card runs on, the dry run (``launch/dryrun.run_cell``)
+   traces the same cell on the host, on ``meta`` tensors as rank 0 of a
+   fake group of four, prefetching and serial; the ``dryrun_internvl2``
+   line sets its prediction beside what phase 6 measured.  Checks: a
+   rank's argument bytes, its encode and decode launches a step and its
+   all-gather and ppermute bytes a step equal the measured ones; the
+   static overlap audit reads the prefetching loop strictly below the
+   serial one.  The predicted peak is printed beside
+   ``max_memory_allocated``, the dot FLOPs beside the measured step time;
 6b. trains internvl2-1b at full width and depth again, as a (dp 2, tp 2)
    mesh of the four ranks (``launch/mesh.mesh_axes``): sequence parallel
    (2,176 of the 4,352 tokens per TP rank), one 4,096-token sequence per
@@ -105,13 +120,15 @@ nothing of the JAX package.  The script
 6d. trains the other families at full width, each with the checks of
    6c's path (finite losses, bytes, launches == syncs x hops (+
    butterflies x rounds)): mamba2-1.3b (d_model 2,048, state 128, depth
-   cut from 48 to 8 layers) for 2 steps and recurrentgemma-9b (d_model
+   cut from 48 to 4 layers) for 2 steps and recurrentgemma-9b (d_model
    4,096, lru_width 4,096, window 2,048, vocab 256,000, depth cut from 38
    to 3 layers, one scanned unit; bf16 optimizer moments) for 1 step,
    both on the (2, 2) mesh with SP at 4,096 tokens; then whisper-small
    at full width and depth (12 + 12 layers, 1,500 stub frames, 448
-   decoder tokens) over four DP ranks, one loss and backward through
-   ``make_encdec_loss_fn`` with every leaf's quantized sync;
+   decoder tokens, one row a rank) over four DP ranks, 2 full steps of the
+   cell builder's encoder-decoder train step (``make_encdec_loss_fn``,
+   every leaf's quantized sync, AdamW, the ``y`` update), its losses and
+   gnorms the same bits on every rank;
 6e. serves (``models/serve.py``; no kernel runs there: the weights come
    through the FSDP gather's bf16 forward and attention is plain torch, as
    the reference's is plain jnp), four ranks on the card over gloo, each
@@ -209,6 +226,7 @@ it, the script exits with a nonzero code and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import shutil
 import dataclasses
@@ -241,10 +259,11 @@ TRAIN_TP_STEPS = 2               # steps of the TP phase (cut from 3)
 MOE_ARCH = "granite-moe-1b-a400m"  # the MoE phase's model (full size)
 MOE_STEPS = 2                    # steps of the MoE phase (cut from 3)
 FAMILY_RUNS = (                  # (arch, layers, steps, optimizer state)
-    ("mamba2-1.3b", 8, 2, "float32"),
+    ("mamba2-1.3b", 4, 2, "float32"),     # cut from 8 for the time limit
     ("recurrentgemma-9b", 3, 1, "bfloat16"),
 )
 WHISPER_DEC_SEQ = 448            # whisper-small's decoder tokens
+WHISPER_STEPS = 2                # whisper-small's full training steps
 SERVE_S_MAX = 32_768             # decode_32k's cache positions
 # the serving phases' runs: batch cut from decode_32k's 128
 SERVE_GLM4 = [dict(arch="glm4-9b", layers=None, mesh=(1, 4), batch=16,
@@ -1374,6 +1393,96 @@ def _bits_digest(torch, tree) -> "list[int]":
     return out
 
 
+def _same_structs(structs, actual) -> bool:
+    """Whether ``actual`` has the tree, shapes and dtypes of a cell's local
+    structs (``launch/steps.local_structs``; host values by type)."""
+    if isinstance(structs, dict):
+        return (isinstance(actual, dict) and sorted(structs) == sorted(actual)
+                and all(_same_structs(structs[k], actual[k])
+                        for k in structs))
+    if hasattr(structs, "is_meta"):
+        return (hasattr(actual, "shape") and actual.dtype == structs.dtype
+                and tuple(actual.shape) == tuple(structs.shape))
+    return type(structs) is type(actual)
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+@contextlib.contextmanager
+def _profiled(torch):
+    """``torch.profiler`` over the block (CPU and CUDA activity, no stacks
+    or shapes), the card synchronized on both sides."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
+def _union(spans) -> "list[tuple[float, float]]":
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _covered(spans, by) -> float:
+    """Length of the union ``spans`` that the union ``by`` covers."""
+    tot, j = 0.0, 0
+    for a, b in spans:
+        while j < len(by) and by[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(by) and by[k][0] < b:
+            tot += min(b, by[k][1]) - max(a, by[k][0])
+            k += 1
+    return tot
+
+
+# profiler events of a collective call on the host
+COLLECTIVE_EVENTS = ("c10d", "gloo", "nccl", "record_param_comms")
+
+
+def _trace_shares(prof) -> dict:
+    """From one profiled step: the device's idle share over the step's
+    window (no kernel of this process running) and the share of the time
+    inside collective calls during which no kernel of this process runs.
+    Reads the profiler's raw events (building its event tree would take
+    longer than the step).  Fails on a trace without kernels or
+    collectives."""
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.end_ns() > e.start_ns()]
+    kern = _union((e.start_ns(), e.end_ns()) for e in evs
+                  if str(e.device_type()).endswith("CUDA"))
+    coll = _union((e.start_ns(), e.end_ns()) for e in evs
+                  if str(e.device_type()).endswith("CPU")
+                  and any(k in e.name() for k in COLLECTIVE_EVENTS))
+    check(kern and coll, f"the profiler saw {len(kern)} kernel spans and "
+          f"{len(coll)} collective calls")
+    t0 = min(e.start_ns() for e in evs)
+    t1 = max(e.end_ns() for e in evs)
+    busy = sum(b - a for a, b in kern)
+    coll_t = sum(b - a for a, b in coll)
+    res = dict(events=len(evs), window_ms=(t1 - t0) / 1e6,
+               kernel_ms=busy / 1e6, collective_ms=coll_t / 1e6,
+               device_idle_share=1.0 - busy / (t1 - t0),
+               collective_idle_share=1.0 - _covered(coll, kern) / coll_t)
+    for k in ("device_idle_share", "collective_idle_share"):
+        check(0.0 <= res[k] <= 1.0, f"{k} = {res[k]}")
+    return res
+
+
 def train_rank_main(torch, rank: int, world: int, seed: int,
                     ckpt_dir: str) -> dict:
     """One rank's share of the training phase; every check raises.
@@ -1391,26 +1500,28 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
 
     import numpy as np
 
+    import torch.distributed as dist
+
     from repro_torch import random as R
-    from repro_torch.configs import registry
     from repro_torch.dist import collectives as C
     from repro_torch.dist import fsdp as F
     from repro_torch.kernels import _build
-    from repro_torch.launch.mesh import make_groups
+    from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
-    from repro_torch.models.sharding import ShardCtx
     from repro_torch.train import data as D
     from repro_torch.train import optim as O
     from repro_torch.train import trainer as TR
 
     dev = torch.device("cuda")
     torch.use_deterministic_algorithms(True)
-    groups = make_groups((world,))
-    cfg = registry.config("internvl2-1b")
-    qcfg = C.QSyncConfig(q=16, bucket=4096)
-    ctx = ShardCtx(dp=world, dp_axes=groups, qcfg=qcfg, grad_sync="lq",
-                   prefetch=True)
     opt = O.OptConfig(lr=3e-4, warmup=1, decay_steps=TRAIN_STEPS)
+    # the cell builder's step and structs: prefetching ZeRO-3 over the
+    # four DP ranks, q = 16, bucket 4096, the batch cut to one row a rank
+    cell_step, structs, cfg, ctx = ST.train_cell(
+        "internvl2-1b", "train_4k", (world, 1), prefetch=True, batch=world,
+        seq=TRAIN_SEQ, opt_cfg=opt, device=dev)
+    groups, qcfg = ctx.dp_axes, ctx.qcfg
+    loc_state, loc_batch = ST.local_structs(structs, (world, 1))
     data = D.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                         global_batch=world, seed=seed)
     rows = (rank, rank + 1)
@@ -1425,10 +1536,10 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
     # instrumentation: the forward gathers' and the gradient syncs' time
     # (host clock, synchronized on both sides), the bytes every sync sends,
     # and the order of the leaf syncs
-    acc = dict(gather_s=0.0, sync_s=0.0, sync_top_s=0.0, sent=0, order=[],
-               data_s=0.0)
-    issue, value, sync, ppermute = (F._issue, F._gather_value, F._sync_grad,
-                                    C._ppermute)
+    acc = dict(gather_s=0.0, sync_s=0.0, sync_top_s=0.0, sent=0,
+               gathered=0, order=[], data_s=0.0)
+    issue, value, sync, ppermute, all_gather = (
+        F._issue, F._gather_value, F._sync_grad, C._ppermute, dist.all_gather)
     capture = {}
 
     def timed(fn, key):
@@ -1458,13 +1569,21 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
         acc["sent"] += t.numel() * t.element_size()
         return ppermute(t, *args, **kwargs)
 
+    def gathered(out, *args, **kwargs):      # gloo's all-gather: a list
+        acc["gathered"] += sum(o.numel() * o.element_size() for o in out)
+        return all_gather(out, *args, **kwargs)
+
     F._issue, F._gather_value = timed(issue, "gather_s"), \
         timed(value, "gather_s")
     F._sync_grad, C._ppermute = sync_recorded, counted
+    dist.all_gather = gathered
 
     tr = TR.Trainer(cfg, ctx, opt, tc, data, extra_batch=extra, device=dev)
+    tr.step_fn = cell_step
     tr._batch = timed(tr._batch, "data_s")
     state0 = tr._init()
+    check(_same_structs(loc_state, state0),
+          f"rank {rank}: the initial state differs from the cell's structs")
     # layer 0's wq at step 0: the key its sync is given
     k0 = R.fold_in(R.fold_in(state0["key"], 0), 1)
     capture["key"] = T._leaf_key(k0, "wq")
@@ -1474,9 +1593,13 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
 
     def timed_step(state, batch):
         nonlocal digest0
+        if state["step"] == 0:
+            check(_same_structs(loc_batch, batch),
+                  f"rank {rank}: the batch differs from the cell's structs")
+            arg_bytes[0] = _tree_bytes(state) + _tree_bytes(batch)
         data_s = acc["data_s"]
         acc.update(gather_s=0.0, sync_s=0.0, sync_top_s=0.0, sent=0,
-                   data_s=0.0)
+                   gathered=0, data_s=0.0)
         n_sync = len(acc["order"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1490,6 +1613,7 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
                           gnorm=float(metrics["gnorm"]),
                           fails=float(metrics["fails"]),
                           sent_bytes=acc["sent"],
+                          gathered_bytes=acc["gathered"],
                           wire_mib=acc["sent"] / 2 ** 20,
                           syncs=len(acc["order"]) - n_sync))
         if state["step"] == 0:
@@ -1497,6 +1621,7 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
                                            "y": new["y"]})
         return new, metrics
 
+    arg_bytes = [0]
     tr.step_fn = timed_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1510,7 +1635,7 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     out = dict(rank=rank, steps=steps, path_seconds=path_s,
                held_gb=held / 1e9, peak_gb=peak_gb, launches=launches,
-               restarts=tr.restarts,
+               restarts=tr.restarts, argument_bytes=arg_bytes[0],
                wire_bytes_step=tr.wire_bytes_step)
     del state0
 
@@ -1546,6 +1671,7 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
 
     F._issue, F._gather_value, F._sync_grad, C._ppermute = (
         issue, value, sync, ppermute)
+    dist.all_gather = all_gather
 
     # layer 0's wq gradient sync at step 0, run again on the CPU over the
     # same gloo group from the same cotangent, y and key: the card's shard
@@ -1585,16 +1711,22 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
     del parts, exact, capture["g"]
     torch.cuda.empty_cache()
 
-    # --- serial == prefetch: one serial step from the same initial state
+    # --- serial == prefetch: one serial step from the same initial state,
+    # under the profiler (as the prefetching step below)
     ser = dataclasses.replace(ctx, prefetch=False)
     st_s = TR.init_state(cfg, ser, opt, tc, R.PRNGKey(0), dp_rank=rank,
                          device=dev)
     b0 = tr._batch(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    new_s, m_s = TR.make_train_step(cfg, ser, opt, tc, dev)(st_s, b0)
-    torch.cuda.synchronize()
-    out["serial_step_s"] = time.perf_counter() - t0
+    ser_step = TR.make_train_step(cfg, ser, opt, tc, dev)
+    t_prof = time.perf_counter()
+    with _profiled(torch) as prof:
+        t0 = time.perf_counter()
+        new_s, m_s = ser_step(st_s, b0)
+        torch.cuda.synchronize()
+        out["serial_step_s"] = time.perf_counter() - t0
+    out["serial_trace"] = _trace_shares(prof)
+    out["serial_trace"]["profiler_s"] = (time.perf_counter() - t_prof
+                                         - out["serial_step_s"])
     dig_s = _bits_digest(torch, {"p": new_s["params"], "y": new_s["y"]})
     check(dig_s == digest0 and float(m_s["loss"]) == steps[0]["loss"],
           f"rank {rank}: the serial step differs from the prefetching one")
@@ -1607,11 +1739,16 @@ def train_rank_main(torch, rank: int, world: int, seed: int,
     # one: the pair that says how much prefetch overlaps
     st_p = TR.init_state(cfg, ctx, opt, tc, R.PRNGKey(0), dp_rank=rank,
                          device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    new_p, m_p = TR.make_train_step(cfg, ctx, opt, tc, dev)(st_p, b0)
-    torch.cuda.synchronize()
-    out["prefetch_step_s"] = time.perf_counter() - t0
+    pre_step = TR.make_train_step(cfg, ctx, opt, tc, dev)
+    t_prof = time.perf_counter()
+    with _profiled(torch) as prof:
+        t0 = time.perf_counter()
+        new_p, m_p = pre_step(st_p, b0)
+        torch.cuda.synchronize()
+        out["prefetch_step_s"] = time.perf_counter() - t0
+    out["prefetch_trace"] = _trace_shares(prof)
+    out["prefetch_trace"]["profiler_s"] = (time.perf_counter() - t_prof
+                                           - out["prefetch_step_s"])
     dig_p = _bits_digest(torch, {"p": new_p["params"], "y": new_p["y"]})
     check(dig_p == digest0 and float(m_p["loss"]) == steps[0]["loss"],
           f"rank {rank}: the uninstrumented prefetching step differs from "
@@ -1736,10 +1873,11 @@ def train_kernel_checks(torch, seed: int) -> None:
         lattice_decode=r["lattice_decode"])
 
 
-def train_internvl2(seed: int) -> dict:
+def train_internvl2(seed: int) -> "tuple[dict, list]":
     """The training phase: four ranks on the one card over gloo, the port's
     Trainer at internvl2-1b's full width and depth; returns the encode and
-    single-decode launches of the main path, summed over the ranks."""
+    single-decode launches of the main path, summed over the ranks, and
+    the ranks' results."""
     import tempfile
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1774,7 +1912,84 @@ def train_internvl2(seed: int) -> dict:
                                   "prefetch_step_s", "serial_equals_prefetch",
                                   "packed_equals_unpacked",
                                   "small_card_equals_cpu")} for r in ranks])
-    return launches
+    r0 = ranks[0]
+    say("train_trace", rank=0, profiled="one serial and one prefetching "
+        "step, torch.profiler (CPU and CUDA activity)",
+        serial_step_s=r0["serial_step_s"], serial=r0["serial_trace"],
+        prefetch_step_s=r0["prefetch_step_s"],
+        prefetch=r0["prefetch_trace"])
+    return launches, ranks
+
+
+def dryrun_internvl2() -> dict:
+    """The dry run (``launch/dryrun.run_cell``) of the training phase's
+    cell: internvl2-1b ``train_4k`` at full width on the phase's (4, 1)
+    layout and batch, traced on ``meta`` tensors as rank 0 of a fake group
+    of four, prefetching and serial.  Host only; no kernel runs."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.train import optim as O
+
+    opt = O.OptConfig(lr=3e-4, warmup=1, decay_steps=TRAIN_STEPS)
+    return {p: DR.run_cell("internvl2-1b", "train_4k", mesh=(WORLD, 1),
+                           batch=WORLD, seq=TRAIN_SEQ, prefetch=p,
+                           opt_cfg=opt)
+            for p in (True, False)}
+
+
+def dryrun_against_phase(pred: dict, ranks: list) -> None:
+    """The dry run's prediction beside what the training phase measured:
+    a rank's argument bytes, kernel launches a step and collective bytes a
+    step by kind must be equal; the peak (against
+    ``max_memory_allocated``) and the FLOP rate at the measured step time
+    are printed; the static overlap audit must read the prefetching loop
+    strictly below the serial one (the reference's ``fsdp_overlap``
+    claim)."""
+    rec, ser = pred[True], pred[False]
+    r0 = ranks[0]
+    step = r0["steps"][-1]
+    coll = rec["collectives"]
+    launches = {k: r0["launches"][k] // TRAIN_STEPS
+                for k in ("lattice_encode", "lattice_decode")}
+    for r in ranks:
+        check(r["argument_bytes"] == rec["memory"]["argument_bytes"],
+              f"rank {r['rank']}: {r['argument_bytes']} argument bytes, the "
+              f"dry run predicts {rec['memory']['argument_bytes']}")
+        for st in r["steps"]:
+            check(st["sent_bytes"] == coll["ppermute"]
+                  and st["gathered_bytes"] == coll["all-gather"],
+                  f"rank {r['rank']} step {st['step']}: sent "
+                  f"{st['sent_bytes']} B by ppermute and gathered "
+                  f"{st['gathered_bytes']} B, the dry run predicts "
+                  f"{coll['ppermute']} and {coll['all-gather']}")
+    for k, v in launches.items():
+        check(rec["kernel_launches"][k] == v,
+              f"{k}: {v} launches a rank a step, the dry run predicts "
+              f"{rec['kernel_launches'][k]}")
+    check(ser["collective_exposed_fraction"]
+          > rec["collective_exposed_fraction"],
+          f"the overlap audit reads prefetching at "
+          f"{rec['collective_exposed_fraction']}, serial at "
+          f"{ser['collective_exposed_fraction']}")
+    peak = rec["memory"]["peak_bytes"]
+    say("dryrun_internvl2", mesh=rec["mesh"], batch=WORLD, seq=TRAIN_SEQ,
+        trace_s={"prefetch": rec["trace_s"], "serial": ser["trace_s"]},
+        argument_bytes=dict(predicted=rec["memory"]["argument_bytes"],
+                            measured=r0["argument_bytes"]),
+        launches_per_step=dict(predicted={k: rec["kernel_launches"][k]
+                                          for k in launches},
+                               measured=launches),
+        collective_bytes_per_step=dict(
+            predicted={k: coll[k] for k in ("all-gather", "ppermute")},
+            measured={"all-gather": step["gathered_bytes"],
+                      "ppermute": step["sent_bytes"]}),
+        peak=dict(predicted_gb=peak / 1e9, measured_gb=r0["peak_gb"],
+                  measured_over_predicted=r0["peak_gb"] * 1e9 / peak),
+        flops=rec["flops"], step_wall_s=step["wall_s"],
+        tflop_per_s=rec["flops"] / step["wall_s"] / 1e12,
+        traffic_bytes=rec["traffic_bytes"],
+        host_syncs=rec["host_syncs"],
+        exposed_fraction=dict(prefetch=rec["collective_exposed_fraction"],
+                              serial=ser["collective_exposed_fraction"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1947,6 +2162,7 @@ def train_tp_rank_main(torch, rank: int, world: int, seed: int,
                                            "y": new["y"]})
         return new, metrics
 
+    arg_bytes = [0]
     tr.step_fn = timed_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2044,11 +2260,16 @@ def train_tp_rank_main(torch, rank: int, world: int, seed: int,
     st_s = TR.init_state(cfg, ser, opt, tc, R.PRNGKey(0), dp_rank=dp_idx,
                          tp_rank=tp_idx, device=dev)
     b0 = tr._batch(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    new_s, m_s = TR.make_train_step(cfg, ser, opt, tc, dev)(st_s, b0)
-    torch.cuda.synchronize()
-    out["serial_step_s"] = time.perf_counter() - t0
+    ser_step = TR.make_train_step(cfg, ser, opt, tc, dev)
+    t_prof = time.perf_counter()
+    with _profiled(torch) as prof:
+        t0 = time.perf_counter()
+        new_s, m_s = ser_step(st_s, b0)
+        torch.cuda.synchronize()
+        out["serial_step_s"] = time.perf_counter() - t0
+    out["serial_trace"] = _trace_shares(prof)
+    out["serial_trace"]["profiler_s"] = (time.perf_counter() - t_prof
+                                         - out["serial_step_s"])
     dig_s = _bits_digest(torch, {"p": new_s["params"], "y": new_s["y"]})
     check(dig_s == digest0 and float(m_s["loss"]) == steps[0]["loss"],
           f"rank {rank}: the serial step differs from the prefetching one")
@@ -2520,50 +2741,54 @@ def _family_trainer_run(torch, rank: int, arch: str, layers: int,
     return out
 
 
-def _whisper_backward(torch, rank: int, world: int, seed: int) -> dict:
+def _whisper_train(torch, rank: int, world: int, seed: int) -> dict:
     """whisper-small at full width and depth (12 + 12 layers, 1,500 stub
-    frames, 448 decoder tokens) over ``world`` DP ranks: one loss and
-    backward through ``make_encdec_loss_fn``, every leaf's gradient
-    reduce-scattered by packed q = 16 recursive halving (prefetching,
-    remat), as the reference drives it (its launcher has no encdec path).
-    Checks a finite loss the same on every rank's DP mean, finite
-    gradients, the bytes == the wire accounting and the encodes and single
-    decodes == syncs x hops."""
+    frames, 448 decoder tokens) over ``world`` DP ranks: WHISPER_STEPS
+    full steps of the cell builder's encoder-decoder train step
+    (``launch/steps.train_cell``: the loss and backward through
+    ``make_encdec_loss_fn`` with every leaf's gradient reduce-scattered by
+    packed q = 16 recursive halving, prefetching, remat; the grad norm,
+    AdamW, the ``y`` update), the batch cut to one row a rank and the
+    decoder to 448 tokens.  Checks: the state and batch have the cell's
+    local structs; finite losses and gnorms with the same bits on every
+    rank; each step's DP sync bytes == the wire accounting; the encodes
+    and single decodes == steps x syncs x hops."""
     from repro_torch import random as R
-    from repro_torch.configs import registry
     from repro_torch.dist import collectives as C
     from repro_torch.dist import fsdp as F
     from repro_torch.kernels import _build
-    from repro_torch.launch.mesh import make_groups
+    from repro_torch.launch import steps as ST
     from repro_torch.models import encdec as ED
     from repro_torch.models import layers as LY
     from repro_torch.models import sharding as S
     from repro_torch.train import data as D
+    from repro_torch.train import optim as O
 
     dev = torch.device("cuda")
-    cfg = registry.config("whisper-small")
-    ctx = S.ShardCtx(dp=world, dp_axes=make_groups((world,)),
-                     qcfg=C.QSyncConfig(q=16, bucket=4096), grad_sync="lq",
-                     prefetch=True)
+    opt = O.OptConfig(lr=3e-4, warmup=1, decay_steps=WHISPER_STEPS)
+    step_fn, structs, cfg, ctx = ST.train_cell(
+        "whisper-small", "train_4k", (world, 1), prefetch=True, batch=world,
+        seq=WHISPER_DEC_SEQ, opt_cfg=opt, device=dev)
+    loc_state, loc_batch = ST.local_structs(structs, (world, 1))
     metas = ED.encdec_metas(cfg, ctx)
     layers = {"enc": cfg.enc_layers, "dec": cfg.n_layers, "top": 0}
-
-    def leaves(tree):
-        return {g: {k: ([v[i].detach().requires_grad_()
-                         for i in range(layers[g])] if layers[g]
-                        else v.detach().requires_grad_())
-                    for k, v in t.items()} for g, t in tree.items()}
-
-    params = leaves(ED.init_encdec_params(cfg, ctx, R.PRNGKey(seed),
-                                          dp_rank=rank, device=dev))
-    tele = leaves(ED.encdec_tele_zeros(cfg, ctx, device=dev))
-    y = ED.encdec_y_init(cfg, ctx, 1.0, device=dev)
+    params = ED.init_encdec_params(cfg, ctx, R.PRNGKey(seed), dp_rank=rank,
+                                   device=dev)
+    state = {"params": params, "opt": O.init_opt_state(params, opt),
+             "y": ED.encdec_y_init(cfg, ctx, 1.0, device=dev), "step": 0,
+             "key": R.PRNGKey(seed + 1)}
     data = D.DataConfig(vocab=cfg.vocab, seq_len=WHISPER_DEC_SEQ,
                         global_batch=world, seed=seed)
-    batch = D.local_batch_at(data, 0, rank, world, device=dev)
-    batch["frames"] = D.frames_at(data, 0, cfg.enc_seq, cfg.d_model,
+
+    def batch_at(step):
+        b = D.local_batch_at(data, step, rank, world, device=dev)
+        b["frames"] = D.frames_at(data, step, cfg.enc_seq, cfg.d_model,
                                   rows=(rank, rank + 1), device=dev)
-    loss_fn = ED.make_encdec_loss_fn(cfg, ctx)
+        return b
+    check(_same_structs(loc_state, state)
+          and _same_structs(loc_batch, batch_at(0)),
+          f"whisper rank {rank}: the state or batch differs from the cell's "
+          f"structs")
     sizes = F._dp_sizes(ctx.dp_axes)
     fcfg = ctx.fsdp_config()
     want_bytes = sum(max(layers[g], 1) * F.wire_bytes_bwd(
@@ -2573,35 +2798,44 @@ def _whisper_backward(torch, rank: int, world: int, seed: int) -> dict:
     hops = world.bit_length() - 1
 
     reg = _Regions(torch)
+    steps = []
     with _patched(_tp_instruments(reg, F, C, S, LY)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        loss, m = loss_fn(params, tele, batch, R.PRNGKey(seed + 1), y)
-        torch.cuda.synchronize()
-        fwd_s = time.perf_counter() - t0
-        loss.backward()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t_path = time.perf_counter()
+        for st in range(WHISPER_STEPS):
+            batch = batch_at(st)
+            reg.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(step=st, wall_s=time.perf_counter() - t0,
+                              gather_s=reg.s.get("gather_s", 0.0),
+                              sync_s=reg.s.get("sync_s", 0.0),
+                              sent=reg.sent.get("sync_s", 0),
+                              loss=float(m["loss"]),
+                              gnorm=float(m["gnorm"])))
+        path_s = time.perf_counter() - t_path
         launches = dict(_build.LAUNCHES)         # read just after the path
-    grads = [t.grad for g in params.values() for v in g.values()
-             for t in (v if isinstance(v, list) else [v])]
-    finite = all(bool(torch.isfinite(gr).all()) for gr in grads)
-    loss_f = float(m["loss"])
-    check(math.isfinite(loss_f) and finite,
-          f"whisper rank {rank}: loss {loss_f}, finite grads {finite}")
-    check(reg.sent.get("sync_s", 0) == want_bytes,
-          f"whisper rank {rank}: the DP syncs sent "
-          f"{reg.sent.get('sync_s', 0)} B, the accounting gives {want_bytes}")
+    for st in steps:
+        check(math.isfinite(st["loss"]) and math.isfinite(st["gnorm"]),
+              f"whisper rank {rank} step {st['step']}: loss {st['loss']}, "
+              f"gnorm {st['gnorm']}")
+        check(st["sent"] == want_bytes,
+              f"whisper rank {rank} step {st['step']}: the DP syncs sent "
+              f"{st['sent']} B, the accounting gives {want_bytes}")
     for k in ("lattice_encode", "lattice_decode"):
-        check(launches[k] == syncs * hops,
+        check(launches[k] == WHISPER_STEPS * syncs * hops,
               f"whisper rank {rank}: {launches[k]} {k} launches, expected "
-              f"{syncs} x {hops}")
-    return dict(rank=rank, arch="whisper-small", wall_s=wall, forward_s=fwd_s,
-                gather_s=reg.s.get("gather_s", 0.0),
-                sync_s=reg.s.get("sync_s", 0.0), loss=loss_f,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+              f"{WHISPER_STEPS} x {syncs} x {hops}")
+    vals = _gather_floats(torch, [v for st in steps
+                                  for v in (st["loss"], st["gnorm"])])
+    check(all(v == vals[0] for v in vals),
+          f"whisper: the losses and gnorms differ across ranks: {vals}")
+    return dict(rank=rank, arch="whisper-small", path_seconds=path_s,
+                steps=steps, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=launches, dp_syncs=syncs, hops=hops,
                 wire_bytes=want_bytes, params=cfg.param_count())
 
@@ -2610,7 +2844,7 @@ def train_families_rank_main(torch, rank: int, world: int, seed: int
                              ) -> dict:
     """One rank's share of the families phase: mamba2-1.3b and
     recurrentgemma-9b through the Trainer on the (dp 2, tp 2) mesh, then
-    whisper-small's loss and backward over four DP ranks.  Each path's
+    whisper-small's training steps over four DP ranks.  Each path's
     counts of launches are set to 0 just before it and read just after."""
     import gc
 
@@ -2626,7 +2860,7 @@ def train_families_rank_main(torch, rank: int, world: int, seed: int
         out[arch]["held_before_gb"] = held
         gc.collect()
         torch.cuda.empty_cache()
-    out["whisper-small"] = _whisper_backward(torch, rank, world, seed)
+    out["whisper-small"] = _whisper_train(torch, rank, world, seed)
     torch.cuda.empty_cache()
     return out
 
@@ -2668,11 +2902,11 @@ def train_families(seed: int) -> dict:
     for k in ("lattice_encode", "lattice_decode"):
         check(launches[k] > 0, f"kernel {k} was not launched by whisper")
     say("train_family", arch="whisper-small", world=WORLD,
-        enc_frames=1500, dec_tokens=WHISPER_DEC_SEQ, params=rs[0]["params"],
-        launches=launches,
-        ranks=[{k: r[k] for k in ("rank", "wall_s", "forward_s", "gather_s",
-                                  "sync_s", "loss", "peak_gb", "dp_syncs",
-                                  "hops", "wire_bytes")} for r in rs])
+        enc_frames=1500, dec_tokens=WHISPER_DEC_SEQ, steps=WHISPER_STEPS,
+        params=rs[0]["params"], launches=launches,
+        ranks=[{k: r[k] for k in ("rank", "path_seconds", "steps", "peak_gb",
+                                  "dp_syncs", "hops", "wire_bytes")}
+               for r in rs])
     say("train_families", wall_s=time.perf_counter() - t0, launches=total)
     return total
 
@@ -3727,11 +3961,17 @@ def smoke(torch, seed: int) -> int:
     torch.cuda.empty_cache()
     coll = collectives(seed)
     counts = {k: counts[k] + coll[k] for k in COLLECTIVE_KERNELS}
-    train = train_internvl2(seed)
+    train, ranks = train_internvl2(seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
+    # the dry run of the phase's cell traces on the host while the card
+    # runs the next phases; it is joined before any host timing
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    dry = pool.submit(dryrun_internvl2)
     train_kernel_checks(torch, seed)
     train = train_internvl2_tp(seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
+    dryrun_against_phase(dry.result(), ranks)
+    pool.shutdown()
     tp_kernel_checks(torch, seed)
     for phase in (train_granite_moe_tp, train_families, serve_glm4_tp4,
                   serve_granite_moe_tp, serve_families):

@@ -12,7 +12,10 @@ build is never loaded.  :func:`build`
 starts one ``nvcc`` per missing source, all at once.
 
 ``LAUNCHES`` holds one plain integer per kernel: its wrapper adds one where
-it launches the kernel, and nowhere else.
+it launches the kernel, and nowhere else.  ``FAKE_LAUNCHES`` counts apart
+the calls a kernel's shape-only implementation answered for a ``meta``
+tensor (a traced step of the dry run, ``launch/dryrun.py``), which
+:func:`record_fake` also reports to the ``FAKE_OBSERVERS``.
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"lattice_encode": 0, "lattice_decode": 0,
             "lattice_decode_batched": 0, "fwht": 0, "flash_attention": 0}
+FAKE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# callables (kernel, inputs, outputs) told of every shape-only call
+FAKE_OBSERVERS: list = []
 
 _libs: "dict[str, ctypes.CDLL]" = {}
 _lock = threading.Lock()
@@ -49,6 +55,17 @@ PTXAS_REPORT: "dict[str, str]" = {}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        FAKE_LAUNCHES[k] = 0
+
+
+def record_fake(kernel: str, inputs, outputs) -> None:
+    """Count one shape-only call of ``kernel`` and tell the observers its
+    input and output tensors (``None`` entries are left out)."""
+    FAKE_LAUNCHES[kernel] += 1
+    ins = [t for t in inputs if isinstance(t, torch.Tensor)]
+    outs = [t for t in outputs if isinstance(t, torch.Tensor)]
+    for obs in FAKE_OBSERVERS:
+        obs(kernel, ins, outs)
 
 
 def nvcc() -> str:

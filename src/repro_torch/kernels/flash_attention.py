@@ -36,6 +36,15 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
+def flash_attention_fake(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Attention's shape-only implementation for a ``meta`` tensor:
+    (BH, Sq, D) in q's dtype, one call recorded."""
+    out = torch.empty_like(q)
+    _build.record_fake("flash_attention", (q, k, v), (out,))
+    return out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, bq: int, bk: int) -> torch.Tensor:
     """Attention of q (BH, Sq, D) over k, v (BH, Sk, D) on the card.

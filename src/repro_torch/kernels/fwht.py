@@ -30,6 +30,14 @@ def _launcher():
     return fn
 
 
+def fwht_fake(x: torch.Tensor) -> torch.Tensor:
+    """The FWHT's shape-only implementation for a ``meta`` tensor: rows as
+    given, one call recorded."""
+    out = torch.empty_like(x)
+    _build.record_fake("fwht", (x,), (out,))
+    return out
+
+
 def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
     """Normalized FWHT of x (..., d) on the card; d a power of two in
     [MIN_D, MAX_D]."""

@@ -34,6 +34,24 @@ def _check_words(words: torch.Tensor, n: int, bits: int) -> None:
                          f"{n} coordinates at {bits} bits")
 
 
+def lattice_decode_fake(words: torch.Tensor, anchor: torch.Tensor,
+                        u: torch.Tensor, s, *, mode: str,
+                        ref: Optional[torch.Tensor] = None,
+                        batched: bool = False) -> torch.Tensor:
+    """The single (or, with ``batched``, the batched) decode's shape-only
+    implementation for a ``meta`` tensor: (n,) or (senders, n) int32
+    coords or f32 points, one call recorded."""
+    n = anchor.numel()
+    shape = (words.shape[0], n) if batched else (n,)
+    out = torch.empty(shape, device=anchor.device,
+                      dtype=torch.int32 if mode == "coords"
+                      else torch.float32)
+    _build.record_fake("lattice_decode_batched" if batched
+                       else "lattice_decode", (words, anchor, u, s, ref),
+                       (out,))
+    return out
+
+
 @functools.cache
 def _single_launcher():
     """The single decode's C launcher, loaded and typed once."""

@@ -23,6 +23,20 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 MAX_N = 1 << 60
 
 
+def lattice_encode_fake(x: torch.Tensor, u: torch.Tensor, s,
+                        anchor: Optional[torch.Tensor] = None, *, q: int,
+                        return_coords: bool = False):
+    """The encode's shape-only implementation for a ``meta`` tensor:
+    outputs of the kernel's shapes and dtypes, one call recorded."""
+    n = x.numel()
+    words = torch.empty(L.packed_len(n, _build.lattice_bits(q)),
+                        dtype=torch.int32, device=x.device)
+    coords = (torch.empty(n, dtype=torch.int32, device=x.device)
+              if return_coords else None)
+    _build.record_fake("lattice_encode", (x, u, s, anchor), (words, coords))
+    return (words, coords) if return_coords else words
+
+
 @functools.cache
 def _launcher():
     """The C launcher, loaded and typed once."""

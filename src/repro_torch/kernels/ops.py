@@ -3,7 +3,12 @@
 The device of the input picks the path, and nothing else does: a CPU
 tensor runs the plain torch version in :mod:`repro_torch.kernels.ref`; a
 CUDA tensor launches the hand-written kernel, or the call raises.  There is
-no fallback from the card to the plain version.
+no fallback from the card to the plain version.  A ``meta`` tensor (the
+dry run's traced step, ``launch/dryrun.py``) holds no data: it goes to
+the kernel's shape-only implementation, which returns outputs of the
+kernel's shapes and records the call, so that a trace counts the kernel
+as one op and not the plain version's ops.  No real tensor takes that
+branch.
 
 Shape rules: the reference's.  The CUDA kernels take q a power of two
 with 2, 4, 8 or 16 bits per color, n >= 32, FWHT rows of d a power of
@@ -13,10 +18,11 @@ shape to its plain version, a CUDA tensor of that shape raises here.
 
 ``DISPATCH_COUNTS`` keeps the reference's semantics: one count per
 decode call (single or batched), whichever device ran it, so a drain can
-be shown to issue exactly one batched decode.  The residual and packing helpers are
-plain torch integer ops on either device (jitted jnp in the reference, not
-Pallas) and are deliberately not counted.  The per-kernel launch counts
-live in :data:`repro_torch.kernels._build.LAUNCHES`.
+be shown to issue exactly one batched decode; a ``meta`` tensor's call
+is counted apart, in ``_build.FAKE_LAUNCHES``.  The residual and packing
+helpers are plain torch integer ops on either device (jitted jnp in the
+reference, not Pallas) and are deliberately not counted.  The per-kernel
+launch counts live in :data:`repro_torch.kernels._build.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -27,11 +33,14 @@ import torch
 import repro_torch.obs as _obs
 from repro_torch.core import lattice as L
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_fake)
+from repro_torch.kernels.fwht import fwht_cuda, fwht_fake
 from repro_torch.kernels.lattice_decode import (lattice_decode_batched_cuda,
-                                                lattice_decode_cuda)
-from repro_torch.kernels.lattice_encode import lattice_encode_cuda
+                                                lattice_decode_cuda,
+                                                lattice_decode_fake)
+from repro_torch.kernels.lattice_encode import (lattice_encode_cuda,
+                                                lattice_encode_fake)
 
 _DISPATCH = {
     "lattice_decode": _obs.registry().counter("kernel_dispatch",
@@ -91,6 +100,8 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def fwht(x: torch.Tensor) -> torch.Tensor:
     """Normalized Walsh-Hadamard over the last axis."""
+    if x.is_meta:
+        return fwht_fake(x)
     if _on_cpu(x):
         return _ref.fwht_ref(x)
     return fwht_cuda(x.contiguous())
@@ -107,6 +118,9 @@ def lattice_encode(x: torch.Tensor, u: torch.Tensor, s, *, q: int,
     (nb,) with ``bucket`` (never broadcast to (N,) on the card).
     ``anchor`` (N,), when given, is subtracted in the kernel:
     k = round((x - anchor)/s - u)."""
+    if x.is_meta:
+        return lattice_encode_fake(x, u, s, anchor, q=q,
+                                   return_coords=return_coords)
     if _on_cpu(x):
         return _ref.lattice_encode_ref(x, u, s, q=q, bits=L.bits_for_q(q),
                                        return_coords=return_coords,
@@ -127,6 +141,8 @@ def lattice_decode(words: torch.Tensor, anchor: torch.Tensor,
     ``s`` is a scalar side, a per-coordinate (n,) array, or per-bucket
     sides (nb,) with ``bucket``; ``ref`` (n,) the anchor the sender
     subtracted."""
+    if anchor.is_meta:
+        return lattice_decode_fake(words, anchor, u, s, mode=mode, ref=ref)
     _DISPATCH["lattice_decode"].inc()
     if _on_cpu(anchor):
         return _ref.lattice_decode_ref(
@@ -148,6 +164,9 @@ def lattice_decode_batched(words: torch.Tensor, anchor: torch.Tensor,
     ``s`` is a scalar side, a shared (n,) array, a per-sender (senders, n)
     array, or per-sender per-bucket sides (senders, nb) with ``bucket``;
     ``ref`` (n,) the shared anchor all senders subtracted."""
+    if anchor.is_meta:
+        return lattice_decode_fake(words, anchor, u, s, mode=mode, ref=ref,
+                                   batched=True)
     _DISPATCH["lattice_decode_batched"].inc()
     if _on_cpu(anchor):
         return _ref.lattice_decode_batched_ref(
@@ -198,6 +217,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and sends a shape its kernel does not take (Sq or Sk not a multiple
     of its block, Sq < 16) to the plain version; here a CUDA tensor of
     such a shape raises."""
+    if q.is_meta:
+        return flash_attention_fake(q, k, v)
     if _on_cpu(q):
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     sq, sk = q.shape[1], k.shape[1]

@@ -4,17 +4,76 @@ Where the reference builds a ``jax`` mesh, the port starts a
 ``torch.distributed`` group per process and builds one process group per
 mesh axis from it: :func:`mesh_axes` lays the ranks out as
 ``jax.make_mesh((dp, tp), ("data", "model"))`` does, ``model`` innermost,
-so rank = dp_idx * tp + tp_idx.  Nothing here runs when the module is
-imported.
+so rank = dp_idx * tp + tp_idx.  :func:`make_production_mesh` gives the
+reference's production layouts, and :func:`fake_world` joins a
+process-local fake group of a layout's world size, which the dry run
+(``launch/dryrun.py``) builds its groups in without a card or a socket.
+Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import datetime
 import math
 import os
 
 import torch
 import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A mesh without devices: its axis sizes, outermost first, and the
+    reference's axis names (the last is always ``model``, the TP axis)."""
+    shape: tuple
+    axis_names: tuple
+
+    @property
+    def axis_sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+
+def layout(mesh) -> Layout:
+    """A :class:`Layout` of ``mesh``: a Layout, or a ``(dp..., tp)`` tuple
+    named as the reference names its meshes (``("data", "model")``,
+    ``("pod", "data", "model")``)."""
+    if isinstance(mesh, Layout):
+        return mesh
+    shape = tuple(int(v) for v in mesh)
+    names = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(
+        len(shape))
+    if names is None:
+        raise ValueError(f"a mesh layout is (data, model) or (pod, data, "
+                         f"model), got {shape}")
+    return Layout(shape, names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Layout:
+    """The reference's production layout: 16 x 16 (``data``, ``model``),
+    or 2 x 16 x 16 (``pod``, ``data``, ``model``) with ``multi_pod``."""
+    return layout((2, 16, 16) if multi_pod else (16, 16))
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """Join a process-local fake group of ``world`` ranks as ``rank`` for
+    the duration of the block, then leave it.  Its collectives move no
+    data and touch no card and no socket; ``new_group`` and so
+    :func:`mesh_axes` work in it as in a real group.  It serves CPU and
+    ``meta`` tensors (a coalesced send and receive asks its device's
+    backend).  The fake backend is a torch-internal module, imported here
+    and nowhere else."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(),
+                            rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def backend_for(world: int, device: str = "cuda") -> str:

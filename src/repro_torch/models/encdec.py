@@ -23,8 +23,9 @@ from repro_torch.models.sharding import (LeafMeta, ShardCtx, anchor_shape,
                                          leaf_tele_width, leaf_y0,
                                          make_gathers, make_split_gathers,
                                          psum_tp, storage_shape)
-from repro_torch.models.transformer import (_attn_metas, _gather_tree,
-                                            _layer, _leaf_key, _mlp_metas,
+from repro_torch.models.transformer import (LAYER_SPAN, _attn_metas,
+                                            _gather_tree, _layer, _leaf_key,
+                                            _mlp_metas,
                                             _prefetch_layer_scan)
 
 
@@ -190,9 +191,10 @@ def make_encdec_loss_fn(cfg: ModelConfig, ctx: ShardCtx):
                 return apply_fn(xc, wts)
 
             for i in range(L):
-                x = (checkpoint(body, x, i, use_reentrant=False,
-                                preserve_rng_state=False) if ctx.remat
-                     else body(x, i))
+                with torch.profiler.record_function(LAYER_SPAN):
+                    x = (checkpoint(body, x, i, use_reentrant=False,
+                                    preserve_rng_state=False) if ctx.remat
+                         else body(x, i))
             return x
 
         # ---- encoder (bidirectional) ----

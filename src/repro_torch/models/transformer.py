@@ -15,6 +15,10 @@ gathered back before the vocab-parallel cross entropy.  With
 ``ctx.remat`` each layer's body, its gathers included, runs under
 ``torch.utils.checkpoint`` (non-reentrant): the backward re-gathers and
 recomputes the layer, as the reference's ``jax.checkpoint(body)`` does.
+Each iteration of a forward layer loop runs inside a
+``torch.profiler.record_function(LAYER_SPAN)`` span (a prefetching loop's
+span holds the next layer's gather issues too): the layer bodies that the
+dry run's overlap audit reads, and the layers of a profiler trace.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from repro_torch.models.sharding import (LeafMeta, ShardCtx, all_gather_tp,
 # families whose training forward pass make_loss_fn builds (the
 # reference's; encdec has its own, models/encdec.py)
 FORWARD_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+# the profiler span of one forward layer iteration
+LAYER_SPAN = "repro_torch.layer"
 
 
 # ---------------------------------------------------------------------------
@@ -390,15 +396,17 @@ def _prefetch_layer_scan(x0, params_l: dict, metas_l: dict, ctx: ShardCtx,
                                            split) for name in bufs}
         return apply_fn(xcur, wts)
 
-    issue(0)
     aux = torch.zeros((), dtype=torch.float32, device=x0.device)
     x = x0
     for i in range(L):
-        if i < L - 1:
-            issue(i + 1)
-        x, a = (checkpoint(body, x, i, use_reentrant=False,
-                                   preserve_rng_state=False) if remat
-                else body(x, i))
+        with torch.profiler.record_function(LAYER_SPAN):
+            if i == 0:
+                issue(0)
+            if i < L - 1:
+                issue(i + 1)
+            x, a = (checkpoint(body, x, i, use_reentrant=False,
+                               preserve_rng_state=False) if remat
+                    else body(x, i))
         aux = aux + a
     return x, aux
 
@@ -461,9 +469,10 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx) -> Callable:
 
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i in range(L):
-                x, a = (checkpoint(body, x, i, use_reentrant=False,
-                                   preserve_rng_state=False)
-                        if ctx.remat else body(x, i))
+                with torch.profiler.record_function(LAYER_SPAN):
+                    x, a = (checkpoint(body, x, i, use_reentrant=False,
+                                       preserve_rng_state=False)
+                            if ctx.remat else body(x, i))
                 aux = aux + a
 
         # the hybrid's tail layers (n_layers % 3, not stacked)

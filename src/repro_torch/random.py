@@ -78,9 +78,10 @@ def _threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor):
 
 
 def _hash_pair(key: Key, hi: int, lo: int) -> Key:
-    """threefry of one count pair, on the host."""
-    y0, y1 = _threefry2x32(key, torch.tensor([hi], dtype=torch.int64),
-                           torch.tensor([lo], dtype=torch.int64))
+    """threefry of one count pair, on the host in Python integers (the
+    hash's operators are the same on ints as on int64 tensors): no tensor
+    op runs, so a traced step records none for its key derivations."""
+    y0, y1 = _threefry2x32(key, int(hi) & _M32, int(lo) & _M32)
     return int(y0), int(y1)
 
 
@@ -134,8 +135,12 @@ def _draw(key: Key, shape: Shape, device, dtype, fn, span=None,
           rows=None) -> torch.Tensor:
     """Run ``fn`` over the int64 uint32 bits of a row-major draw, chunk by
     chunk, into an output of ``dtype``; only the part named by ``span`` or
-    ``rows`` (see the module docstring) is drawn."""
+    ``rows`` (see the module docstring) is drawn.  On the ``meta`` device
+    (a dry run's traced step, ``launch/dryrun.py``) there are no bits to
+    draw: the draw is one fill of its output, as a compiler fuses it."""
     start, stop, out_shape = _span(_shape(shape), span, rows)
+    if torch.device(device).type == "meta":
+        return torch.zeros(out_shape, dtype=dtype, device=device)
     out = torch.empty(stop - start, dtype=dtype, device=device)
     for c0 in range(start, stop, _CHUNK):
         c1 = min(stop, c0 + _CHUNK)

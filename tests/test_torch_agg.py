@@ -289,7 +289,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.transformer, repro_torch.train.optim, "
             "repro_torch.train.data, repro_torch.train.checkpoint, "
             "repro_torch.train.trainer, repro_torch.launch.mesh, "
-            "repro_torch.launch.train, repro_torch.configs.registry; "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.launch.trace_analysis, repro_torch.launch.dryrun, "
+            "repro_torch.launch.reanalyze, repro_torch.configs.registry; "
             "from repro_torch.configs import registry; "
             "[registry.config(a) for a in registry.ARCHS]; "
             "bad = [m for m in sys.modules if m == 'jax' "
