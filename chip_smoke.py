@@ -23,7 +23,10 @@ nothing of the JAX package.  The script
    STS and SHFL at d = 4096 and its registers, and fails if any instance
    of it spilled, and fails unless the encode's and the single decode's
    main instances move their streams by 128-bit loads and stores and no
-   instance of theirs spilled;
+   instance of theirs spilled, and unless every instance of the attention
+   kernels (f32 at head dims 64, 128, 192 and 256; the wgmma kernel in
+   bf16 and f16 at each) spilled nothing and every wgmma instance shows
+   HGMMA and UTMALDG;
 3. runs round A: an unrotated, unanchored round of 16 clients over a
    277,845,504-dimensional vector (the gradient of whisper-small, the
    smallest model the repo configures), q = 16, bucket = 4096, y0 = 0.25;
@@ -186,21 +189,29 @@ nothing of the JAX package.  The script
    sealed drain bit for bit;
 11. times the round's costs outside the kernels at full width (the threefry
    draws, the anchor digest, one CRC-32 pass over a frame);
-12. runs attention through ``ops.flash_attention`` at three models' full
-   widths: qwen3-32b prefill (64 query heads x head_dim 128, K/V expanded
-   from its 8 KV heads, one sequence of ``prefill_32k``'s 32,768 tokens, the
-   batch cut from 32 to 1; bf16, causal), nemotron-4-340b prefill (96 x
-   192 from 8 KV heads, one 32,768-token sequence, the batch cut from 32;
-   bf16, causal) and granite-moe-1b-a400m training (16 heads x 64, K/V
-   from 8 KV heads, 8 sequences of ``train_4k``'s 4,096 tokens, the batch
-   cut from 256 to 8; f32, causal and not).  The bf16 cases are the wgmma
-   kernel's path, the f32 ones the CUDA-core kernel's.  It times the
-   kernel, holds its output on the first 2 of BH against the plain version
-   (which holds a (BH, S, S) f32 score tensor, so it runs 2 of BH at a
-   time), times the plain version over all of BH in chunks of 2, and times
-   ``scaled_dot_product_attention`` on the same tensors as the library call
-   (used nowhere in the port), printing SDPA's own share of the kernel's
-   limit against the plain version as information;
+12. runs attention through ``ops.flash_attention`` (``ATTENTION_CASES``)
+   at four models' full widths: qwen3-32b prefill (64 query heads x
+   head_dim 128, K/V expanded from its 8 KV heads, one sequence of
+   ``prefill_32k``'s 32,768 tokens, the batch cut from 32 to 1; bf16,
+   causal), nemotron-4-340b prefill (96 x 192 from 8 KV heads, one
+   32,768-token sequence, the batch cut from 32; bf16, causal),
+   recurrentgemma-9b prefill (16 x 256 from 1 KV head, one 32,768-token
+   sequence, the batch cut from 32; bf16, causal) and training (8
+   sequences of 4,096, the batch cut from 256; f32, causal and not), and
+   granite-moe-1b-a400m training (16 heads x 64, K/V from 8 KV heads, 8
+   sequences of ``train_4k``'s 4,096 tokens, the batch cut from 256 to 8;
+   f32, causal and not, and f16, causal); then head dims the wrapper pads
+   (16, every smoke config's, in bf16; 48 in f32) and shapes the
+   reference sends to its plain version (Sq = Sk = 1,000, causal, and 8
+   queries over 4,096 keys, at qwen3-32b's heads in bf16).  The bf16 and
+   the f16 cases are the wgmma kernel's paths, the f32 ones the CUDA-core
+   kernel's.  It times the kernel, holds its output on the first 2 of BH
+   against the plain version (which holds a (BH, Sq, Sk) f32 score
+   tensor, so it runs 2 of BH at a time), times the plain version over
+   all of BH in chunks of 2, and times ``scaled_dot_product_attention`` on
+   the same tensors as the library call (used nowhere in the port), printing SDPA's own share of the kernel's limit
+   against the plain version as information.  The bound counts the
+   unpadded head dim's operations;
 13. runs the paper's algorithms (``repro_torch.core``) on the card: at
    d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
    of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
@@ -216,7 +227,7 @@ nothing of the JAX package.  The script
 Every count of kernel launches is set to 0 just before each main path
 (rounds A and B; each rank's collectives; each rank's training runs,
 each family's among them; the
-service, the tree and the engine phases; the bf16 and the f32 attention
+service, the tree and the engine phases; the bf16, f32 and f16 attention
 paths; the paper-algorithms phase) and read just after it; a kernel of a
 path that was not launched there fails the run, and the ``kernels`` line
 sums the counts of the paths over all ranks.  Any failed check raises before the
@@ -294,29 +305,54 @@ KERNEL_SOURCES = {
     "flash_attention_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wgmma_f16": (
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "src/repro/kernels/flash_attention.py:62"),
 }
 # the kernels the rounds and the collectives launch
 COLLECTIVE_KERNELS = ("lattice_encode", "lattice_decode",
                       "lattice_decode_batched", "fwht")
-# (label, query heads, KV heads, head_dim, tokens, sequences, dtype, causal)
+# (label, query heads, KV heads, head_dim, tokens (or (Sq, Sk)), sequences,
+# dtype, causal); the first case of each dtype gives its kernel's entry in
+# the ``kernels`` line
 ATTENTION_CASES = (
     ("qwen3-32b prefill_32k", 64, 8, 128, 32_768, 1, "bfloat16", (True,)),
     ("granite-moe-1b-a400m train_4k", 16, 8, 64, 4_096, 8, "float32",
      (True, False)),
     ("nemotron-4-340b prefill_32k", 96, 8, 192, 32_768, 1, "bfloat16",
      (True,)),
+    ("granite-moe-1b-a400m train_4k", 16, 8, 64, 4_096, 8, "float16",
+     (True,)),
+    ("recurrentgemma-9b prefill_32k", 16, 1, 256, 32_768, 1, "bfloat16",
+     (True,)),
+    ("recurrentgemma-9b train_4k", 16, 1, 256, 4_096, 8, "float32",
+     (True, False)),
+    # padded to D 64 in the wrapper: every smoke config's width, and one
+    # that no config has
+    ("smoke width (D 16)", 4, 2, 16, 4_096, 8, "bfloat16", (True,)),
+    ("padded D 48", 16, 8, 48, 4_096, 8, "float32", (True,)),
+    # shapes the reference sends to its plain version, at qwen3-32b's heads
+    ("qwen3-32b heads, Sq = Sk = 1,000", 64, 8, 128, 1_000, 1, "bfloat16",
+     (True,)),
+    ("qwen3-32b heads, Sq 8 over Sk 4,096", 64, 8, 128, (8, 4_096), 1,
+     "bfloat16", (False,)),
 )
-# ops.flash_attention's kernel for each dtype (one launch count for both)
+# ops.flash_attention's kernel for each dtype (one launch count for all);
+# bf16 and f16 are two instances of the wgmma kernel, with their own
+# entries in the ``kernels`` line
 ATTENTION_KERNEL = {"bfloat16": "flash_attention_wgmma",
-                    "float32": "flash_attention"}
-# the bf16 kernel's P.V takes two products (P split into bf16 hi and lo),
-# so its tensor cores issue 1.5x the useful operations
+                    "float32": "flash_attention",
+                    "float16": "flash_attention_wgmma_f16"}
+# the wgmma kernel's P.V takes two products (P split into hi and lo), so
+# its tensor cores issue 1.5x the useful operations
 BF16_ISSUED = 1.5
 # (rtol, atol) of the kernel against its plain version.  Both compute in
 # f32 and round once to the output type, so bf16 outputs differ by at most
-# one bf16 step, 2^-7 of the value (rtol 1e-2 leaves a margin of 1.28);
-# f32 outputs differ only by the order of the sums.
-ATTENTION_TOL = {"bfloat16": (1e-2, 1e-5), "float32": (2e-4, 2e-4)}
+# one bf16 step, 2^-7 of the value (rtol 1e-2 leaves a margin of 1.28),
+# and f16 outputs by one f16 step, 2^-10 of the value (rtol 2e-3, a margin
+# of 2.05); f32 outputs differ only by the order of the sums.
+ATTENTION_TOL = {"bfloat16": (1e-2, 1e-5), "float32": (2e-4, 2e-4),
+                 "float16": (2e-3, 1e-5)}
 
 
 class SmokeError(RuntimeError):
@@ -428,13 +464,49 @@ def sass_counts(sass: str, ops) -> dict:
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in ops}
 
 
-def wgmma_sass(_build) -> dict:
-    """The wgmma kernel must show HGMMA (wgmma) and UTMALDG (TMA loads)."""
-    counts = sass_counts(cuobjdump(_build, "flash_attention_wgmma", "-sass"),
-                         ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR"))
-    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-          f"flash_attention_wgmma's SASS has no HGMMA or no UTMALDG: {counts}")
-    return counts
+def ptxas_spills(report: str) -> dict:
+    """Spill-store bytes of every function in a ptxas ``-v`` report."""
+    return {fn: int(n) for fn, n in re.findall(
+        r"Function properties for (\S+)\s*\n\s*\d+ bytes stack frame, "
+        r"(\d+) bytes spill stores", report)}
+
+
+def attention_sass(_build) -> dict:
+    """Every instance of the attention kernels, one per (input type, head
+    dim): the wgmma kernel's must show HGMMA (wgmma) and UTMALDG (TMA
+    loads) in its SASS, and none of either library may have spilled (0
+    spill-store bytes in ptxas's report of this build, where this process
+    built it, and no local memory in ``cuobjdump -res-usage``)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    # the f32 kernel at each built head dim, the wgmma kernel at each
+    # (input type, head dim), by their mangled names
+    instances = {
+        "flash_attention": [f"flash_fwd_kernelILi{d}E" for d in HEAD_DIMS],
+        "flash_attention_wgmma": [f"flash_wgmma_kernelI{t}Li{d}E"
+                                  for t in ("13__nv_bfloat16", "6__half")
+                                  for d in HEAD_DIMS]}
+    out = {}
+    for lib, names in instances.items():
+        parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
+        bodies = dict(zip(parts[1::2], parts[2::2]))
+        usage = res_usage(_build, lib)
+        spills = ptxas_spills(_build.PTXAS_REPORT.get(lib, ""))
+        for inst in names:
+            found = [fn for fn in bodies if inst in fn]
+            check(len(found) == 1, f"{lib}: {len(found)} functions named "
+                  f"like {inst} in the SASS")
+            fn = found[0]
+            c = sass_counts(bodies[fn], ("HGMMA", "UTMALDG",
+                                         "WARPGROUP.DEPBAR"))
+            c.update(usage.get(fn, {}), spill_store_bytes=spills.get(fn))
+            if lib == "flash_attention_wgmma":
+                check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                      f"{fn}'s SASS has no HGMMA or no UTMALDG: {c}")
+            check(c.get("local") == 0 and not c["spill_store_bytes"],
+                  f"{lib} {fn} spilled: {c}")
+            out[inst] = c
+    return out
 
 
 # the FWHT kernel at d = 4096, f32, 16-byte runs (its main paths' instance)
@@ -3635,18 +3707,19 @@ def host_costs(torch, d: int, seed: int) -> None:
 # Phase 12: attention at full width
 # ---------------------------------------------------------------------------
 
-def attention_inputs(torch, heads: int, kv_heads: int, hd: int, seq: int,
-                     batch: int, dtype, seed: int):
-    """q (batch*heads, seq, hd) and k, v drawn for ``kv_heads`` heads and
-    expanded to ``heads`` (grouped-query attention), in ``dtype``."""
+def attention_inputs(torch, heads: int, kv_heads: int, hd: int, sq: int,
+                     sk: int, batch: int, dtype, seed: int):
+    """q (batch*heads, sq, hd) and k, v (batch*heads, sk, hd) drawn for
+    ``kv_heads`` heads and expanded to ``heads`` (grouped-query
+    attention), in ``dtype``."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(batch * heads, seq, hd, generator=g, device=dev).to(dtype)
+    q = torch.randn(batch * heads, sq, hd, generator=g, device=dev).to(dtype)
 
     def kv():
-        t = torch.randn(batch, kv_heads, seq, hd, generator=g, device=dev)
+        t = torch.randn(batch, kv_heads, sk, hd, generator=g, device=dev)
         return (t.to(dtype).repeat_interleave(heads // kv_heads, dim=1)
-                .reshape(batch * heads, seq, hd))
+                .reshape(batch * heads, sk, hd))
     k = kv()
     return q, k, kv()
 
@@ -3658,10 +3731,11 @@ def attention_path(torch, ops, _build, cases_in, seed: int):
     cases = []
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    for label, heads, kvh, hd, seq, batch, dt, causals in cases_in:
+    for label, heads, kvh, hd, tokens, batch, dt, causals in cases_in:
+        sq, sk = tokens if isinstance(tokens, tuple) else (tokens, tokens)
         dtype = getattr(torch, dt)
-        q, k, v = attention_inputs(torch, heads, kvh, hd, seq, batch, dtype,
-                                   seed)
+        q, k, v = attention_inputs(torch, heads, kvh, hd, sq, sk, batch,
+                                   dtype, seed)
         for causal in causals:
             o = ops.flash_attention(q, k, v, causal=causal)
             ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v,
@@ -3675,12 +3749,23 @@ def attention_path(torch, ops, _build, cases_in, seed: int):
     return cases, launches, path_s
 
 
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes: all of them, or where
+    causal those with key position <= query position (both from 0)."""
+    if not causal:
+        return sq * sk
+    full = max(0, sq - sk)                     # rows that see every key
+    part = sq - full                           # rows i < sk see i + 1 keys
+    return full * sk + part * (part + 1) // 2
+
+
 def attention(torch, seed: int):
-    """The attention phase: two main paths, the bf16 cases (the wgmma
-    kernel) and the f32 cases (the CUDA-core kernel), each driven with the
-    counts set to 0 just before it and read just after.  The comparison
-    with the plain version reuses the kept outputs and launches nothing.
-    Returns {kernel: (kernels-line entry, launches)}."""
+    """The attention phase: three main paths, the bf16 and the f16 cases
+    (two instances of the wgmma kernel) and the f32 cases (the CUDA-core
+    kernel), each driven with the counts set to 0 just before it and read
+    just after.  The comparison with the plain version reuses the kept
+    outputs and launches nothing.  Returns {kernel: (kernels-line entry,
+    launches)}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import _build, ops, ref
@@ -3698,6 +3783,7 @@ def attention(torch, seed: int):
             q, k, v = c.pop("qkv")
             o = c.pop("out")
             bh, sq, hd = q.shape
+            sk = k.shape[1]
             causal = c["causal"]
             check(tuple(o.shape) == tuple(q.shape) and o.dtype == q.dtype
                   and bool(torch.isfinite(o).all()),
@@ -3733,20 +3819,22 @@ def attention(torch, seed: int):
             plain_ms = cuda_ms(torch, plain, reps=1)
             lib_ms = cuda_ms(torch, library)
             elt = q.element_size()
-            useful = (2 * bh * hd * sq * (sq + 1) if causal
-                      else 4 * bh * sq * sq * hd)
-            rate = BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S
-            b, by = bound(4 * bh * sq * hd * elt, useful, rate)
-            c.update(kernel=name, shape=f"BH={bh}, S={sq}, D={hd}",
-                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                     library_ms=lib_ms, max_abs_err=err, rtol=rtol,
-                     atol=atol, share_of_limit=share,
-                     sdpa_share_of_limit=sdpa_share,
+            # the unpadded head dim's operations, whatever width ran
+            useful = 4 * bh * hd * attention_pairs(sq, sk, causal)
+            # f16 has bf16's dense tensor-core rate
+            rate = F32_OPS_PER_S if dt == "float32" else BF16_OPS_PER_S
+            nbytes = 2 * bh * (sq + sk) * hd * elt
+            b, by = bound(nbytes, useful, rate)
+            c.update(kernel=name, shape=f"BH={bh}, Sq={sq}, Sk={sk}, "
+                     f"D={hd}", plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     share_of_bound=b / c["ms"], library_ms=lib_ms,
+                     max_abs_err=err, rtol=rtol, atol=atol,
+                     share_of_limit=share, sdpa_share_of_limit=sdpa_share,
                      useful_tflop=useful / 1e12,
                      tflop_per_s=useful / c["ms"] / 1e9)
-            if dt == "bfloat16":
-                c["issued_bound_ms"], _ = bound(
-                    4 * bh * sq * hd * elt, BF16_ISSUED * useful, rate)
+            if dt != "float32":
+                c["issued_bound_ms"], _ = bound(nbytes, BF16_ISSUED * useful,
+                                                rate)
             say("attention", **c)
             results.append(c)
             del q, k, v, o
@@ -3950,8 +4038,8 @@ def smoke(torch, seed: int) -> int:
         ptxas[name] = dict(max_registers=max(regs, default=None),
                            spill_store_bytes=sum(spills))
     say("build", seconds=time.perf_counter() - t0, built=built, ptxas=ptxas)
-    say("sass", flash_attention_wgmma=wgmma_sass(_build),
-        fwht=fwht_sass(_build), **lattice_sass(_build))
+    say("sass", attention=attention_sass(_build), fwht=fwht_sass(_build),
+        **lattice_sass(_build))
 
     spec = wire.RoundSpec(round_id=1, d=FULL_D,
                           cfg=QSyncConfig(q=16, bucket=4096))

@@ -2,7 +2,7 @@
 // Hopper (sm_90a).
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
-// (_flash_kernel), for f32 inputs (bf16 inputs take
+// (_flash_kernel), for f32 inputs (bf16 and f16 inputs take
 // flash_attention_wgmma.cu).  For each (batch*head, query row) it computes
 //   out = softmax(scale * q . K^T, masked) . V,   scale = float32(1/sqrt(D)),
 // with q scaled before the product, as the reference does (here by
@@ -11,16 +11,20 @@
 // max(l, 1e-30).  Where causal, keys past the query's position (both
 // counted from 0) take no part; the reference writes -1e30 there, whose
 // exponential is exactly 0, so p = 0 gives the same function.  D is 64,
-// 128 or 192.
+// 128, 192 or 256 (the wrapper pads any other D <= 256 with zero columns
+// and passes the scale of the unpadded D); BH, Sq and Sk are any sizes
+// >= 1: the grid is one-dimensional over (query tile, bh), and a ragged
+// tile of queries or keys is masked.
 //
 // Bound on this card: operations, at the f32 rate (TF32 would not hold the
 // f32 tolerance).  Per query row and visible key it does 2 D multiply-adds.
 //
-// Design: one block of 256 threads per (bh, BQ = 32 RM query rows); thread
-// (ty, tx) of the 32 x 8 grid owns rows ty + 32 i (i < RM), keys tx + 8 j
-// (j < 8) of each 64-key tile and output columns 4 tx + 32 c .. + 3.  It
-// reads its operands as 16-byte loads from row-major shared tiles padded
-// by 4 floats (Q scaled, K, V, P), so each load feeds 6 to 13 FMAs: RM
+// Design: one block of 256 threads per (bh, BQ = 32 RM query rows), RM = 4
+// at D <= 128 and 2 above; thread (ty, tx) of the 32 x 8 grid owns rows
+// ty + 32 i (i < RM), keys tx + 8 j (j < 8) of each 64-key tile and output
+// columns 4 tx + 32 c .. + 3.  It reads its operands as 16-byte loads from
+// row-major shared tiles padded by 4 floats (Q scaled, K, V, P), so each
+// load feeds 6 to 13 FMAs: RM
 // rows x 8 keys from RM + 8 loads per 4 columns of D for the scores, RM
 // rows x D/8 columns from RM + 4 D/32 loads per 4 keys for P.V.  The row
 // max and sum reduce over the 8 lanes of a row with shuffles; a warp
@@ -31,6 +35,7 @@
 // first; only tiles at the diagonal or the ragged end of K test masks.
 // All products are explicit f32 FMAs.  No allocation; the launch
 // goes on the caller's stream.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -43,10 +48,11 @@ constexpr int LP = BK + 8;         // row stride of P: the 4 rows of a warp
                                    // fall 8 banks apart
 constexpr float NEG = -1e30f;
 
-// query rows per thread: fewer at D = 192, whose accumulator and tiles
-// would not fit otherwise
+// query rows per thread: fewer at D = 192 and 256, whose accumulator and
+// tiles would not fit otherwise (at 256: 218,112 bytes of shared memory and
+// 64 accumulator registers a thread)
 template <int D> __host__ __device__ constexpr int rows_per_thread() {
-  return D == 192 ? 2 : 4;
+  return D > 128 ? 2 : 4;
 }
 
 template <int D>
@@ -139,6 +145,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int BQ = TY * RM;
   constexpr int LD = D + 4;
   constexpr int NC = D / 32;       // float4 output columns per thread
+  constexpr int QK_UNROLL = D == 64 ? 1 : 2;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // BQ x LD, scaled q
   float* ks = qs + BQ * LD;                      // BK x LD
@@ -146,8 +153,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ps = vs + BK * LD;                      // BQ x LP
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int64_t bh = blockIdx.x;
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int n_bh = gridDim.x / n_qt;
+  const int64_t bh = blockIdx.x % n_bh;
+  const int t_idx = blockIdx.x / n_bh;
+  const int qt = causal ? n_qt - 1 - t_idx : t_idx;
   const int q0 = qt * BQ;
   const float* kb = k + bh * sk * D;
   const float* vb = v + bh * sk * D;
@@ -195,7 +205,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 2
+    // at D = 64 (two blocks an SM, 128 registers a thread) an unrolled
+    // loop spills
+#pragma unroll(QK_UNROLL)
     for (int c = 0; c < D; c += 4) {
       float4 a[RM];
 #pragma unroll
@@ -275,14 +287,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int causal, float scale_log2, cudaStream_t stream) {
+  constexpr int BQ = TY * rows_per_thread<D>();
+  const int64_t blocks = (int64_t)bh * ((sq + BQ - 1) / BQ);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  constexpr int BQ = TY * rows_per_thread<D>();
-  dim3 grid((unsigned)bh, (unsigned)((sq + BQ - 1) / BQ));
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<D><<<(unsigned)blocks, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), sq, sk, scale_log2,
       causal);
@@ -292,17 +305,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous f32
-// on 16-byte boundaries; d: 64, 128 or 192; scale_log2 = f32(1/sqrt(d)) *
-// log2(e).  Returns the CUDA error code of
-// the launch (0 = launched); any stale error is cleared first so that the
-// code reports this launch alone.
+// on 16-byte boundaries; d: 64, 128, 192 or 256; bh, sq, sk >= 1 (bh times
+// the query tiles at most INT_MAX); scale_log2 = f32(1/sqrt(D)) * log2(e),
+// D the head dim before any padding.  Returns the CUDA error code of the
+// launch (0 = launched); any stale error is cleared first so that the code
+// reports this launch alone.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int sq, int sk, int d, int causal,
                                       float scale_log2, void* stream) {
   cudaGetLastError();
-  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64)
     return launch<64>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
@@ -310,5 +323,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch<128>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
   if (d == 192)
     return launch<192>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+  if (d == 256)
+    return launch<256>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
   return (int)cudaErrorInvalidValue;
 }

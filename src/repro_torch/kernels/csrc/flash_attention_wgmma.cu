@@ -1,25 +1,30 @@
-// Flash attention forward (online softmax) in bf16 on Hopper's tensor cores
-// (sm_90a): wgmma for both products, K/V tiles by TMA.
+// Flash attention forward (online softmax) in bf16 or f16 on Hopper's
+// tensor cores (sm_90a): wgmma for both products, K/V tiles by TMA.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
-// (_flash_kernel), for bf16 inputs (f32 inputs take flash_attention.cu).
-// For each (batch*head, query row) it computes
+// (_flash_kernel), for bf16 and f16 inputs (f32 inputs take
+// flash_attention.cu).  For each (batch*head, query row) it computes
 //   out = softmax(scale * q . K^T, masked) . V,   scale = float32(1/sqrt(D)),
 // with the products, the scores, the running max and sum and the
-// accumulator in f32 and out = acc / max(l, 1e-30) rounded to bf16.  Where
-// causal, keys past the query's position (both counted from 0) take no
-// part, and neither do keys at or past Sk.  D is 64, 128 or 192.
+// accumulator in f32 and out = acc / max(l, 1e-30) rounded to the input
+// type.  Where causal, keys past the query's position (both counted from
+// 0) take no part, and neither do keys at or past Sk.  D is 64, 128, 192
+// or 256 (the wrapper pads any other D <= 256 with zero columns and passes
+// the scale of the unpadded D); BH, Sq and Sk are any sizes >= 1: the
+// grid is one-dimensional over (query tile, bh), and a ragged tile of
+// queries or keys is masked.
 //
 // Bound on this card: operations.  Per query row and visible key it does
 // 2 D multiply-adds (q.k and p.v), thousands per byte read at the sequence
 // lengths attention runs at.
 //
-// Numerics.  q.K^T is exact bf16 products summed in f32 (wgmma), scaled
-// after the product.  The plain version keeps P in f32, and rounding P
-// once to bf16 moves a few percent of the outputs by more than one bf16
-// step at long sequences.  So P is split, P_hi = bf16(p) and
-// P_lo = bf16(p - P_hi), and O += P_hi . V + P_lo . V: two wgmmas, P good
-// to about 2^-16 of its value, the tensor cores issuing 1.5x the useful
+// Numerics.  q.K^T is exact bf16 (or f16) products summed in f32 (wgmma),
+// scaled after the product.  The plain version keeps P in f32, and
+// rounding P once to bf16 moves a few percent of the outputs by more than
+// one bf16 step at long sequences.  So P is split, P_hi = T(p) and
+// P_lo = T(p - P_hi), and O += P_hi . V + P_lo . V: two wgmmas, P good
+// to about 2^-16 of its value in bf16 (2^-22 in f16, down to f16's
+// smallest subnormal, 2^-24), the tensor cores issuing 1.5x the useful
 // operations.  Exponentials are exp2 of scores scaled by log2(e).
 //
 // Design.  One block per (bh, 128 query rows), 384 threads: warpgroup 0
@@ -38,15 +43,20 @@
 // P_lo.V (m64nDk16, A = P in registers, taken from the S fragments as they
 // lie, B = V MN-major from shared memory).  S of tile t and P.V of tile
 // t - 1 are issued together, so the softmax of tile t runs while the
-// tensor cores do P.V; the two consumer warpgroups overlap each other too.
-// TMA zero-fills rows past S, and those keys are masked (only tiles at the
-// diagonal or the ragged end test masks).  Key tiles wholly above a
-// block's rows are not loaded, and those above a warpgroup's rows not
-// computed; in causal mode the block with the most key tiles starts first.
-// No allocation; the launch goes on the caller's stream.
+// tensor cores do P.V; the two consumer warpgroups overlap each other
+// too.  At D = 256 that keeps O (128 registers a thread), S of one tile
+// and P_hi, P_lo of the other live at once, and ptxas still fits them in
+// the 240 without spilling.  TMA zero-fills rows past S, and those keys
+// are masked (only tiles at the diagonal or the ragged end test masks).  Key tiles wholly above a block's rows are not
+// loaded, and those above a warpgroup's rows not computed; in causal mode
+// the blocks with the most key tiles start first.  No allocation; the
+// launch goes on the caller's stream.
 #include <cstdint>
+#include <climits>
+#include <type_traits>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
@@ -56,6 +66,9 @@ constexpr int BQ = 128;            // query rows per block
 constexpr int BK = 64;             // keys per tile
 constexpr int THREADS = 384;       // producer warpgroup + 2 consumers
 constexpr float NEG = -1e30f;
+
+template <typename T>
+constexpr bool kF16 = std::is_same<T, __half>::value;
 
 template <int D>
 struct Layout {
@@ -156,124 +169,121 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// the accumulator operands d[i] .. d[i + 7] / d[i] .. d[i + 31] of an asm
+#define FA_D8(d, i) "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define FA_D32(d, i) FA_D8(d, i), FA_D8(d, (i) + 8), FA_D8(d, (i) + 16), FA_D8(d, (i) + 24)
+#define FA_A4(a) "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+
+// the wgmma instructions, TY the input type ("bf16" or "f16")
+#define FA_SS_N64(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define FA_RS_N64(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+#define FA_RS_N128(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+#define FA_RS_N192(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+  "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+#define FA_RS_N256(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+  "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+
+// The wgmma products, T the input type (__nv_bfloat16 or __half).
 // S (64 x 64, f32) = A (64 x 16, shared) . B (16 x 64, shared), both K-major
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (kF16<T>)
+    asm volatile(FA_SS_N64("f16") : FA_D32(d, 0)
+                 : "l"(a), "l"(b), "r"(accumulate));
+  else
+    asm volatile(FA_SS_N64("bf16") : FA_D32(d, 0)
+                 : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// O (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// O (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// O (64 x 192, f32) += A (64 x 16, registers) . B (16 x 192, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
+// O (64 x D, f32) += A (64 x 16, registers) . B (16 x D, shared, MN-major)
+template <typename T, int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t* a,
                                          uint64_t b) {
-  if constexpr (D == 64) wgmma_rs_n64(o, a, b);
-  else if constexpr (D == 128) wgmma_rs_n128(o, a, b);
-  else wgmma_rs_n192(o, a, b);
+  if constexpr (D == 64) {
+    if constexpr (kF16<T>)
+      asm volatile(FA_RS_N64("f16") : FA_D32(d, 0)
+                   : FA_A4(a), "l"(b), "r"(1));
+    else
+      asm volatile(FA_RS_N64("bf16") : FA_D32(d, 0)
+                   : FA_A4(a), "l"(b), "r"(1));
+  } else if constexpr (D == 128) {
+    if constexpr (kF16<T>)
+      asm volatile(FA_RS_N128("f16") : FA_D32(d, 0), FA_D32(d, 32)
+                   : FA_A4(a), "l"(b), "r"(1));
+    else
+      asm volatile(FA_RS_N128("bf16") : FA_D32(d, 0), FA_D32(d, 32)
+                   : FA_A4(a), "l"(b), "r"(1));
+  } else if constexpr (D == 192) {
+    if constexpr (kF16<T>)
+      asm volatile(FA_RS_N192("f16")
+                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64)
+                   : FA_A4(a), "l"(b), "r"(1));
+    else
+      asm volatile(FA_RS_N192("bf16")
+                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64)
+                   : FA_A4(a), "l"(b), "r"(1));
+  } else {
+    static_assert(D == 256, "head dims 64, 128, 192 and 256 are built");
+    if constexpr (kF16<T>)
+      asm volatile(FA_RS_N256("f16")
+                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64), FA_D32(d, 96)
+                   : FA_A4(a), "l"(b), "r"(1));
+    else
+      asm volatile(FA_RS_N256("bf16")
+                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64), FA_D32(d, 96)
+                   : FA_A4(a), "l"(b), "r"(1));
+  }
 }
 
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (p0, p1) as bf16 pairs hi = bf16(p) and lo = bf16(p - hi)
-__device__ __forceinline__ void split_bf16x2(float p0, float p1, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = bf16x2(__fsub_rn(p0, __low2float(h)), __fsub_rn(p1, __high2float(h)));
-}
+// The input type's conversions: pairs packed as one 32-bit register, and
+// (p0, p1) split into pairs hi = T(p) and lo = T(p - hi)
+template <typename T> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void split(float p0, float p1,
+                                               uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = pack(__fsub_rn(p0, __low2float(h)), __fsub_rn(p1, __high2float(h)));
+  }
+};
+template <> struct Elem<__half> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void split(float p0, float p1,
+                                               uint32_t& hi, uint32_t& lo) {
+    const __half2 h = __floats2half2_rn(p0, p1);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = pack(__fsub_rn(p0, __low2float(h)), __fsub_rn(p1, __high2float(h)));
+  }
+};
 
 // The online-softmax step of one 64-key tile on a thread's S fragments
 // (rows r0, r0 + 8; keys key0 + 8 j + {0, 1}): p = exp2(s * scale_log2 -
@@ -321,15 +331,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
   for (int r = 0; r < 2; ++r) l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), rs[r]);
 }
 
-// q, k, v: 3-d tensor maps over (bh, S, D) bf16, boxes of 64 columns by
-// BQ (q) or BK (k, v) rows; out (bh, sq, D) bf16.  Grid (bh, query tiles).
-template <int D>
+// q, k, v: 3-d tensor maps over (bh, S, D) of T, boxes of 64 columns by
+// BQ (q) or BK (k, v) rows; out (bh, sq, D) of T.  Grid: query tiles x bh
+// blocks, bh the faster index.
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int sq, int sk,
-                   float scale_log2, int causal) {
+                   T* __restrict__ out, int sq, int sk, float scale_log2,
+                   int causal) {
   using L = Layout<D>;
   constexpr int S = L::STAGES;
   constexpr int CB = D / 64;       // 64-column blocks
@@ -341,8 +352,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t full_k = bar_q + 8, empty_k = full_k + 8 * S,
                  full_v = empty_k + 8 * S, empty_v = full_v + 8 * S;
 
-  const int bh = blockIdx.x;
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int n_bh = gridDim.x / n_qt;
+  const int bh = blockIdx.x % n_bh, t_idx = blockIdx.x / n_bh;
+  const int qt = causal ? n_qt - 1 - t_idx : t_idx;
   const int q0 = qt * BQ;
   // keys past the tile's last query row are masked for all of its rows
   const int kend = causal ? min(sk, q0 + BQ) : sk;
@@ -416,7 +429,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;   // 16 columns of a block
-        wgmma_ss_n64(sc, desc_k_major(qa + (kk / 4) * BQ * 128 + off),
+        wgmma_ss_n64<T>(sc, desc_k_major(qa + (kk / 4) * BQ * 128 + off),
                      desc_k_major(kb + (kk / 4) * BK * 128 + off), kk > 0);
       }
       wgmma_commit();
@@ -429,8 +442,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t b = desc_mn_major(vb + kk * 16 * 128);
-        wgmma_pv<D>(o, phi + 4 * kk, b);
-        wgmma_pv<D>(o, plo + 4 * kk, b);
+        wgmma_pv<T, D>(o, phi + 4 * kk, b);
+        wgmma_pv<T, D>(o, plo + 4 * kk, b);
       }
       wgmma_commit();
     };
@@ -464,8 +477,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int rr = 0; rr < 2; ++rr) {
             const int i = 4 * (2 * kk + h) + 2 * rr;
-            split_bf16x2(sc[i], sc[i + 1], phi[4 * kk + 2 * h + rr],
-                         plo[4 * kk + 2 * h + rr]);
+            Elem<T>::split(sc[i], sc[i + 1], phi[4 * kk + 2 * h + rr],
+                           plo[4 * kk + 2 * h + rr]);
           }
     };
     // tiles 0 .. n_live - 1 are computed; a tile wholly above this
@@ -528,12 +541,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = r0 + 8 * rr;
       if (row >= sq) continue;
       const float den = fmaxf(l[rr], 1e-30f);
-      __nv_bfloat16* orow = out + ((int64_t)bh * sq + row) * D + c0;
+      T* orow = out + ((int64_t)bh * sq + row) * D + c0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-            bf16x2(__fdiv_rn(o[4 * j + 2 * rr], den),
-                   __fdiv_rn(o[4 * j + 2 * rr + 1], den));
+            Elem<T>::pack(__fdiv_rn(o[4 * j + 2 * rr], den),
+                          __fdiv_rn(o[4 * j + 2 * rr + 1], den));
     }
   }
 }
@@ -558,62 +571,86 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (bh, s, d) bf16 tensor as a 3-d map with 64-column boxes of `rows`
+// a (bh, s, d) tensor of T as a 3-d map with 64-column boxes of `rows`
 // rows, 128-byte swizzle, zeros past the edges
+template <typename T>
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* p, int bh,
                   int s, int d, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return enc(map, Elem<T>::MAP, 3, const_cast<void*>(p), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int causal, float scale_log2, cudaStream_t stream) {
+  const int64_t blocks = (int64_t)bh * ((sq + BQ - 1) / BQ);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   CUtensorMap tq, tk, tv;
-  CUresult r = make_map(enc, &tq, q, bh, sq, D, BQ);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tk, k, bh, sk, D, BK);
-  if (r == CUDA_SUCCESS) r = make_map(enc, &tv, v, bh, sk, D, BK);
+  CUresult r = make_map<T>(enc, &tq, q, bh, sq, D, BQ);
+  if (r == CUDA_SUCCESS) r = make_map<T>(enc, &tk, k, bh, sk, D, BK);
+  if (r == CUDA_SUCCESS) r = make_map<T>(enc, &tv, v, bh, sk, D, BK);
   if (r != CUDA_SUCCESS) return -(int)r;
   const size_t smem = Layout<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)bh, (unsigned)((sq + BQ - 1) / BQ));
-  flash_wgmma_kernel<D><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, sk, scale_log2,
-      causal);
+  flash_wgmma_kernel<T, D><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), sq, sk, scale_log2, causal);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
+             int sq, int sk, int d, int causal, float scale_log2,
+             void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 64:
+      return launch<T, 64>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+    case 128:
+      return launch<T, 128>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+    case 192:
+      return launch<T, 192>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+    case 256:
+      return launch<T, 256>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous bf16
-// on 16-byte boundaries; d: 64, 128 or 192; scale_log2 = f32(1/sqrt(d)) *
-// log2(e).  Returns the CUDA error code of the launch (0 = launched), or
-// minus the driver's code where a tensor map could not be made; any stale
-// error is cleared first so that the code reports this launch alone.
+// (f16 for the _f16 launcher) on 16-byte boundaries; d: 64, 128, 192 or
+// 256; bh, sq, sk >= 1 (bh times the query tiles of 128 rows at most
+// INT_MAX); scale_log2 = f32(1/sqrt(D)) * log2(e), D the head dim before
+// any padding.  Returns the CUDA error code of the launch (0 = launched),
+// or minus the driver's code where a tensor map could not be made; any
+// stale error is cleared first so that the code reports this launch alone.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* out, int bh,
                                             int sq, int sk, int d, int causal,
                                             float scale_log2, void* stream) {
-  cudaGetLastError();
-  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64)
-    return launch<64>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
-  if (d == 128)
-    return launch<128>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
-  if (d == 192)
-    return launch<192>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, sk, d, causal,
+                                 scale_log2, stream);
+}
+
+extern "C" int flash_attention_wgmma_f16_launch(const void* q, const void* k,
+                                                const void* v, void* out,
+                                                int bh, int sq, int sk, int d,
+                                                int causal, float scale_log2,
+                                                void* stream) {
+  return dispatch<__half>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
+                          stream);
 }

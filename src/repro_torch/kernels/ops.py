@@ -11,10 +11,12 @@ as one op and not the plain version's ops.  No real tensor takes that
 branch.
 
 Shape rules: the reference's.  The CUDA kernels take q a power of two
-with 2, 4, 8 or 16 bits per color, n >= 32, FWHT rows of d a power of
-two in [4, 16384], and attention with Sq >= 16, Sq and Sk multiples of
-min(256, S), and head dim 64, 128 or 192.  Where the reference sends any other
-shape to its plain version, a CUDA tensor of that shape raises here.
+with 2, 4, 8 or 16 bits per color, n >= 32, and FWHT rows of d a power of
+two in [4, 16384]; where the reference sends any other shape to its plain
+version, a CUDA tensor of that shape raises here.  Attention takes more
+than the reference's kernel does: any BH, Sq, Sk >= 1 (the reference
+sends Sq < 16, and Sq or Sk not a multiple of min(256, S), to its plain
+version) and any head dim up to 256, in f32, bf16 or f16; D > 256 raises.
 
 ``DISPATCH_COUNTS`` keeps the reference's semantics: one count per
 decode call (single or batched), whichever device ran it, so a drain can
@@ -215,16 +217,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The reference takes blocks ``bq = min(256, Sq)``, ``bk = min(256, Sk)``
     and sends a shape its kernel does not take (Sq or Sk not a multiple
-    of its block, Sq < 16) to the plain version; here a CUDA tensor of
-    such a shape raises."""
+    of its block, Sq < 16) to its plain version, which computes the same
+    function.  Here a CUDA tensor of any BH, Sq, Sk >= 1, any D <= 256 and
+    f32, bf16 or f16 goes to the kernel, which masks a ragged edge and
+    pads D to a built width; D > 256 raises."""
     if q.is_meta:
         return flash_attention_fake(q, k, v)
     if _on_cpu(q):
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     sq, sk = q.shape[1], k.shape[1]
-    bq, bk = min(256, sq), min(256, sk)
-    if sq % bq or sk % bk or sq < 16:
-        raise ValueError(f"the flash_attention kernel takes Sq >= 16 and Sq, "
-                         f"Sk multiples of min(256, S); got Sq={sq}, Sk={sk}")
     return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=causal, bq=bq, bk=bk)
+                                causal=causal, bq=min(256, sq),
+                                bk=min(256, sk))

@@ -108,14 +108,16 @@ def lattice_pack_coords_ref(k: torch.Tensor, *, q: int,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Plain-softmax attention.  q: (BH, Sq, D); k/v: (BH, Sk, D) ->
-    (BH, Sq, D) in q's dtype, f32 inside, scale 1/sqrt(D).  Where causal,
-    a score with query position < key position (both counted from 0) is
-    replaced by -1e30."""
-    d = q.shape[-1]
+    (BH, Sq, D) in q's dtype, f32 inside, scores scaled by ``scale``
+    (1/sqrt(D) where not given; a padded call passes the unpadded D's).
+    Where causal, a score with query position < key position (both
+    counted from 0) is replaced by -1e30."""
     s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
-                     k.to(torch.float32)) / math.sqrt(d)
+                     k.to(torch.float32))
+    s = s / math.sqrt(q.shape[-1]) if scale is None else s * scale
     if causal:
         sq, sk = s.shape[-2:]
         mask = (torch.arange(sq, device=s.device)[:, None]

@@ -98,9 +98,82 @@ def test_plain_versions_agree(sq, sk, causal):
         got.numpy())
 
 
+# the head dims the kernels run padded (16: every smoke config's; 48: none
+# built), the widest built one (recurrentgemma-9b's), and f16 at each and
+# at 64
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d,causal", [(16, True), (16, False), (48, True),
+                                      (64, True), (256, True), (256, False)])
+def test_flash_attention_matches_reference_head_dims(d, causal, dtype):
+    """Head dims 16, 48, 64 and 256 against the reference's Pallas kernel
+    (it takes any D and any float type, f32 inside) at 256 x 256, at the
+    reference test's tolerances: 2e-4 for f32, 3e-2 for bf16 and f16
+    (rounded to the output type separately on each side)."""
+    q, k, v = _qkv(2, 256, 256, d, seed=d)
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    want = JK.flash_attention(*(jnp.asarray(a).astype(dtype)
+                                for a in (q, k, v)), causal=causal)
+    got = TK.flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                               for a in (q, k, v)), causal=causal)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,causal", [(300, 300, True), (8, 256, False),
+                                          (8, 256, True)])
+def test_flash_attention_matches_reference_ragged(sq, sk, causal, dtype):
+    """Shapes the reference's ``ops`` sends to its plain version (Sq not a
+    multiple of min(256, Sq); Sq < 16), which the port's kernel takes on
+    the card: the port against the reference at the reference test's
+    tolerances, D 128."""
+    q, k, v = _qkv(2, sq, sk, 128, seed=sq)
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    want = JK.flash_attention(*(jnp.asarray(a).astype(dtype)
+                                for a in (q, k, v)), causal=causal)
+    got = TK.flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                               for a in (q, k, v)), causal=causal)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("d", [1, 16, 48, 100, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dim_is_the_same_function(d, causal):
+    """The wrapper's padding: the plain version on the padded q, k, v at
+    the unpadded D's scale, sliced back to D columns, equals the plain
+    version on the unpadded ones: the zero columns add exact zeros to
+    every q.k, and the products' sums are blocked otherwise at another
+    width, so rtol = atol = 1e-6, a few f32 steps of outputs below 1."""
+    from repro_torch.kernels.flash_attention import (pad_head_dim,
+                                                     padded_head_dim)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 96, 80, d, seed=d))
+    qp, kp, vp = pad_head_dim(q, k, v)
+    dp = padded_head_dim(d)
+    assert dp in (64, 128, 192, 256) and dp >= d
+    assert qp.shape == (2, 96, dp) and vp.shape == (2, 80, dp)
+    assert not qp[..., d:].any() and not kp[..., d:].any()
+    scale = 1.0 / np.sqrt(d)
+    got = TRef.flash_attention_ref(qp, kp, vp, causal=causal, scale=scale)
+    assert not got[..., d:].any()
+    np.testing.assert_allclose(
+        got[..., :d].numpy(),
+        TRef.flash_attention_ref(q, k, v, causal=causal, scale=scale).numpy(),
+        rtol=1e-6, atol=1e-6)
+    # a built head dim is left as it is
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 8, 8, 128, seed=1))
+    assert all(a is b for a, b in zip(pad_head_dim(q, k, v), (q, k, v)))
+
+
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     """The CUDA wrapper refuses bad arguments before any launch (these
-    checks run the same with or without a card)."""
+    checks run the same with or without a card): D past 256, a dtype
+    other than f32, bf16 and f16, an empty shape, mismatched shapes or
+    dtypes, a misaligned start."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     def qkv(sq, sk, d, dtype=torch.float32):
@@ -108,14 +181,14 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
                 torch.zeros(2, sk, d, dtype=dtype),
                 torch.zeros(2, sk, d, dtype=dtype))
 
-    with pytest.raises(ValueError, match="D in"):
-        flash_attention_cuda(*qkv(256, 256, 48), causal=True, bq=256, bk=256)
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_attention_cuda(*qkv(256, 256, 320), causal=True, bq=256, bk=256)
     # 192 passes the head-dim check and stops at the next one
     q, k, v = qkv(256, 256, 192)
     with pytest.raises(ValueError, match="shape"):
         flash_attention_cuda(q, k, v[:, :128].contiguous(), causal=False,
                              bq=256, bk=256)
-    with pytest.raises(ValueError, match="f32 or bf16"):
+    with pytest.raises(ValueError, match="f32, bf16 or f16"):
         flash_attention_cuda(*qkv(256, 256, 64, torch.float64), causal=True,
                              bq=256, bk=256)
     with pytest.raises(ValueError, match="empty"):

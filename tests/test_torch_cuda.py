@@ -348,19 +348,33 @@ def _qkv(bh, sq, sk, d, seed):
                  for s in (sq, sk, sk))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 192])
+# (rtol, atol) of the kernels against the plain version on the card: both
+# compute in f32 and round once to the output type
+_FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-5),
+              torch.float16: (2e-3, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 48, 64, 128, 192, 256])
 @pytest.mark.parametrize("sq,sk,causal", [(256, 256, True), (256, 256, False),
                                           (80, 80, True), (256, 1024, False),
-                                          (512, 256, False), (64, 200, False)])
+                                          (512, 256, False), (64, 200, False),
+                                          (300, 300, True), (8, 256, False),
+                                          (8, 256, True), (1, 1, True),
+                                          (1000, 1000, True)])
 def test_flash_attention_matches_plain(cuda, dtype, d, sq, sk, causal):
     """Online softmax in tiles against the plain softmax (f32 on the CUDA
-    cores, bf16 on wgmma with P split into two bf16 terms): f32 inside,
+    cores, bf16 and f16 on wgmma with P split into two terms): f32 inside,
     sums in another order; f32 at rtol = atol = 2e-4.  Both round once to
-    bf16, so bf16 outputs differ by at most one bf16 step, 2^-7 of the
-    value: rtol = 1e-2, atol = 1e-5.  (80, 80) leaves a ragged tile of
-    queries and keys; in (64, 200) the last key tile is ragged, and the
-    wgmma kernel's TMA fills it with zeros, which must be masked."""
+    the output type, so bf16 outputs differ by at most one bf16 step, 2^-7
+    of the value (rtol = 1e-2, atol = 1e-5), and f16 outputs by one f16
+    step, 2^-10 of the value (rtol = 2e-3, atol = 1e-5).  (80, 80) leaves
+    a ragged tile of queries and keys; in (64, 200) the last key tile is
+    ragged, and the wgmma kernel's TMA fills it with zeros, which must be
+    masked; (300, 300), (8, 256), (1, 1) and (1000, 1000) are shapes the
+    reference sends to its plain version; D 16 and 48 run padded to 64,
+    one launch."""
     q, k, v = (a.to(dtype) for a in _qkv(3, sq, sk, d, seed=d + sq))
     want = TRef.flash_attention_ref(q, k, v, causal=causal)
     before = _build.LAUNCHES["flash_attention"]
@@ -369,7 +383,7 @@ def test_flash_attention_matches_plain(cuda, dtype, d, sq, sk, causal):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
-    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-5)
+    rtol, atol = _FLASH_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=rtol, atol=atol)
 
@@ -390,15 +404,46 @@ def test_flash_attention_bf16_long_causal(cuda):
                                atol=1e-5)
 
 
-def test_flash_attention_raises_outside_the_rules(cuda):
-    """A head dim the kernel is not built for, and a length the reference
-    sends to its plain version, raise on the card; nothing launches."""
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_attention_f16_long_causal(cuda, d):
+    """The same long causal rows in f16 (P split into two f16 terms), at
+    D 128 and 256, within the f16 limits of the short cases."""
+    q, k, v = (a.to(torch.float16).to(cuda)
+               for a in _qkv(2, 8192, 8192, d, seed=8192))
+    want = TRef.flash_attention_ref(q, k, v, causal=True)
+    got = TK.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = _FLASH_TOL[torch.float16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bh_past_grid_y(cuda, dtype):
+    """BH = 70,000 > 65,535 (the limit of a grid's second dimension) in one
+    launch; every row of BH against the plain version."""
+    q, k, v = (a.to(dtype).to(cuda) for a in _qkv(70_000, 16, 16, 64, seed=7))
     before = _build.LAUNCHES["flash_attention"]
-    q, k, v = (a.to(cuda) for a in _qkv(2, 256, 256, 48, seed=0))
-    with pytest.raises(ValueError, match="D in"):
+    got = TK.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want = TRef.flash_attention_ref(q, k, v, causal=True)
+    rtol, atol = _FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_attention_raises_outside_the_rules(cuda):
+    """A head dim past 256 and a dtype the kernels are not built for raise
+    on the card; nothing launches."""
+    before = _build.LAUNCHES["flash_attention"]
+    q, k, v = (a.to(cuda) for a in _qkv(2, 256, 256, 320, seed=0))
+    with pytest.raises(ValueError, match="D <= 256"):
         TK.flash_attention(q, k, v)
-    q, k, v = (a.to(cuda) for a in _qkv(2, 300, 300, 64, seed=0))
-    with pytest.raises(ValueError, match="multiples"):
+    q, k, v = (a.to(cuda).double() for a in _qkv(2, 256, 256, 64, seed=0))
+    with pytest.raises(ValueError, match="f32, bf16 or f16"):
         TK.flash_attention(q, k, v)
     assert _build.LAUNCHES["flash_attention"] == before
 
