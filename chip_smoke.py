@@ -18,15 +18,22 @@ nothing of the JAX package.  The script
    the timing at the full shape — and prints its time (``ms``, one call;
    ``device_ms``, a run of back-to-back calls), bound, plain time and
    library-call time.  The FWHT is held bitwise also at every row length
-   it takes (4 to 16384), in f32 and bf16, and on two views off a 16-byte
+   from 4 to 16384, in f32 and bf16, and on two views off a 16-byte
    boundary, and is timed in bf16 too; the ``sass`` line counts its LDS,
    STS and SHFL at d = 4096 and its registers, and fails if any instance
    of it spilled, and fails unless the encode's and the single decode's
    main instances move their streams by 128-bit loads and stores and no
-   instance of theirs spilled, and unless every instance of the attention
-   kernels (f32 at head dims 64, 128, 192 and 256; the wgmma kernel in
-   bf16 and f16 at each) spilled nothing and every wgmma instance shows
-   HGMMA and UTMALDG;
+   instance of the four lattice libraries spilled, and unless every
+   instance of the attention kernels (f32 at head dims 64, 128, 192 and
+   256; the wgmma kernel in bf16 and f16 at each; the wide kernel in each
+   type) spilled nothing and every wgmma instance shows HGMMA and
+   UTMALDG.  Then the shapes the reference's kernels do not take
+   (``shape_kernel_checks``), each bitwise against its plain version at
+   full width and timed: the encode, the single decode and the batched
+   decode (16 senders) at q = 2 (1-bit colors), 3 and 12 (not powers of
+   two), the encode and the single decode at n = 31, and the FWHT over
+   (4,239, 65,536), (264, 1,048,576) and (138,922,752, 2), f32 and bf16
+   (rows past 16,384 in two launches);
 3. runs round A: an unrotated, unanchored round of 16 clients over a
    277,845,504-dimensional vector (the gradient of whisper-small, the
    smallest model the repo configures), q = 16, bucket = 4096, y0 = 0.25;
@@ -48,8 +55,18 @@ nothing of the JAX package.  The script
    every rank; the error against the exact mean is within the reference's
    model, 0.51 s per quantization (per coordinate unrotated, in l2
    rotated); and a small world-4 star and butterfly (d = 2^18) give the
-   same bits on the card as on the CPU.  A rank that fails, or has not
-   finished within ``RANK_TIMEOUT_S``, fails the run;
+   same bits on the card as on the CPU.  Then the shape paths
+   (``SHAPE_PATHS``, each its own path, card == CPU bitwise, the same
+   failures): the star, butterfly and recursive halving at d = 2^18 and
+   q = 2 with y = 1e-3 (the paper's §5 failure cases: every rank must
+   detect failures), at q = 3, and at q = 12 rotated with bucket 32,768
+   (FWHT rows past 16,384); the star and the butterfly rotated with
+   buckets of 65,536 and of 1,048,576 (the FWHT rows that the kernel
+   checks at those widths take); the butterfly over 31 coordinates with
+   bucket 1 (n < 32) and rotated with bucket 2 (FWHT rows of 2); one FSDP
+   gradient sync at q = 2 with a tiny y (the ``lq-fails`` case).  A rank
+   that fails, or has not finished within ``RANK_TIMEOUT_S``, fails the
+   run;
 6. trains internvl2-1b at full width and depth (24 layers, d_model 896,
    vocab 151,655, 256 stub image tokens; 629.6 M parameters) with the
    port's ``Trainer`` running the step that the cell builder
@@ -184,9 +201,10 @@ nothing of the JAX package.  The script
    the engine and a 2-tier tree, once on the card and once on the CPU,
    bitwise equal;
 10. runs a small round (d = 2^18, 8 clients) once on the card and once on
-   the CPU (plain versions) and requires bitwise equal means, and a
-   chunked, windowed streaming round on the card that must equal the
-   sealed drain bit for bit;
+   the CPU (plain versions) and requires bitwise equal means, the same
+   at q = 3 and at q = 2 (each drain its own path), and a chunked,
+   windowed streaming round on the card that must equal the sealed drain
+   bit for bit;
 11. times the round's costs outside the kernels at full width (the threefry
    draws, the anchor digest, one CRC-32 pass over a frame);
 12. runs attention through ``ops.flash_attention`` (``ATTENTION_CASES``)
@@ -203,15 +221,18 @@ nothing of the JAX package.  The script
    f32, causal and not, and f16, causal); then head dims the wrapper pads
    (16, every smoke config's, in bf16; 48 in f32) and shapes the
    reference sends to its plain version (Sq = Sk = 1,000, causal, and 8
-   queries over 4,096 keys, at qwen3-32b's heads in bf16).  The bf16 and
-   the f16 cases are the wgmma kernel's paths, the f32 ones the CUDA-core
-   kernel's.  It times the kernel, holds its output on the first 2 of BH
+   queries over 4,096 keys, at qwen3-32b's heads in bf16), and head dim
+   512 (16 heads, one sequence of 4,096, causal; bf16 and f32), past the
+   built widths.  The bf16 and the f16 cases are the wgmma kernel's
+   paths, the f32 ones the CUDA-core kernel's, head dim 512 the wide
+   kernel's; each kernel's cases are one path.  It times the kernel, holds its output on the first 2 of BH
    against the plain version (which holds a (BH, Sq, Sk) f32 score
    tensor, so it runs 2 of BH at a time), times the plain version over
    all of BH in chunks of 2, and times ``scaled_dot_product_attention`` on
-   the same tensors as the library call (used nowhere in the port), printing SDPA's own share of the kernel's limit
-   against the plain version as information.  The bound counts the
-   unpadded head dim's operations;
+   the same tensors as the library call (used nowhere in the port; the
+   first of its backends that takes the shape, named), printing SDPA's
+   own share of the kernel's limit against the plain version as
+   information.  The bound counts the unpadded head dim's operations;
 13. runs the paper's algorithms (``repro_torch.core``) on the card: at
    d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
    of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
@@ -225,12 +246,16 @@ nothing of the JAX package.  The script
 14. prints the ``kernels`` line, then the ``ok`` line last.
 
 Every count of kernel launches is set to 0 just before each main path
-(rounds A and B; each rank's collectives; each rank's training runs,
-each family's among them; the
-service, the tree and the engine phases; the bf16, f32 and f16 attention
-paths; the paper-algorithms phase) and read just after it; a kernel of a
-path that was not launched there fails the run, and the ``kernels`` line
-sums the counts of the paths over all ranks.  Any failed check raises before the
+(rounds A and B; each rank's collectives, and each of their shape paths;
+each rank's training runs, each family's among them; the service, the
+tree and the engine phases; the drains at q = 3 and q = 2; each attention
+kernel's path; the paper-algorithms phase) and read just after it; a
+kernel of a path that was not launched there fails the run, and the
+``kernels`` line sums the counts of the paths over all ranks.  Its
+entries of the new shapes (``SHAPE_INSTANCES``) take their kernel's
+launches on the paths that run them at that width: the FWHT's rows of
+65,536 and 1,048,576 on the rotated paths of those buckets.  Any failed
+check raises before the
 last line is printed.  Without a CUDA device, or without the port beside
 it, the script exits with a nonzero code and prints no result.
 """
@@ -308,7 +333,58 @@ KERNEL_SOURCES = {
     "flash_attention_wgmma_f16": (
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wide": (
+        "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wide_f32": (
+        "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        "src/repro/kernels/flash_attention.py:62"),
 }
+# the instances of the shapes the reference's kernels do not take, each
+# with its entry in the ``kernels`` line: (kernel, the color space q of a
+# lattice instance (None for the FWHT), the paths whose launches of that
+# kernel are its launches: the collectives' SHAPE_PATHS, ``drain_q<q>`` of
+# small_rounds); each path runs the instance at the width of its check
+SHAPE_INSTANCES = {
+    "lattice_encode_q2": ("lattice_encode", 2,
+                          ("q2_fails", "fsdp_lq_fails", "drain_q2")),
+    "lattice_decode_q2": ("lattice_decode", 2, ("q2_fails", "fsdp_lq_fails")),
+    "lattice_decode_batched_q2": ("lattice_decode_batched", 2,
+                                  ("q2_fails", "drain_q2")),
+    "lattice_encode_q3": ("lattice_encode", 3, ("q3", "drain_q3")),
+    "lattice_decode_q3": ("lattice_decode", 3, ("q3",)),
+    "lattice_decode_batched_q3": ("lattice_decode_batched", 3,
+                                  ("q3", "drain_q3")),
+    "lattice_encode_q12": ("lattice_encode", 12, ("q12_rot",)),
+    "lattice_decode_q12": ("lattice_decode", 12, ("q12_rot",)),
+    "lattice_decode_batched_q12": ("lattice_decode_batched", 12,
+                                   ("q12_rot",)),
+    "lattice_encode_n31": ("lattice_encode", 16, ("n31",)),
+    "lattice_decode_n31": ("lattice_decode", 16, ("n31",)),
+    "fwht_d2": ("fwht", None, ("n31_rot",)),
+    "fwht_d65536": ("fwht", None, ("d65536_rot",)),
+    "fwht_d1048576": ("fwht", None, ("d1048576_rot",)),
+}
+
+
+def kernel_sources() -> "dict[str, tuple[str, str]]":
+    """(source, replaced TPU kernel) of every entry of the ``kernels``
+    line: ``KERNEL_SOURCES``, and for each of ``SHAPE_INSTANCES`` its
+    kernel's, a lattice instance's from the library its q builds
+    (``_build.lattice_library``)."""
+    from repro_torch.kernels import _build
+
+    out = dict(KERNEL_SOURCES)
+    for name, (kernel, q, _) in SHAPE_INSTANCES.items():
+        src, replaces = KERNEL_SOURCES[kernel]
+        if q is not None:
+            path = Path(src)
+            src = str(path.with_stem(_build.lattice_library(
+                path.stem, _build.pow2(q))))
+        out[name] = (src, replaces)
+    return out
+
+
 # the kernels the rounds and the collectives launch
 COLLECTIVE_KERNELS = ("lattice_encode", "lattice_decode",
                       "lattice_decode_batched", "fwht")
@@ -336,6 +412,10 @@ ATTENTION_CASES = (
      (True,)),
     ("qwen3-32b heads, Sq 8 over Sk 4,096", 64, 8, 128, (8, 4_096), 1,
      "bfloat16", (False,)),
+    # past head dim 256 (no config of the repo's has it; the reference's
+    # kernel takes any D): the wide kernel
+    ("head dim 512, 16 heads", 16, 16, 512, 4_096, 1, "bfloat16", (True,)),
+    ("head dim 512, 16 heads", 16, 16, 512, 4_096, 1, "float32", (True,)),
 )
 # ops.flash_attention's kernel for each dtype (one launch count for all);
 # bf16 and f16 are two instances of the wgmma kernel, with their own
@@ -343,6 +423,15 @@ ATTENTION_CASES = (
 ATTENTION_KERNEL = {"bfloat16": "flash_attention_wgmma",
                     "float32": "flash_attention",
                     "float16": "flash_attention_wgmma_f16"}
+# past head dim 256: the wide kernel, one entry for each type it is checked
+# in
+ATTENTION_WIDE = {"bfloat16": "flash_attention_wide",
+                  "float32": "flash_attention_wide_f32"}
+
+
+def attention_kernel(dt: str, hd: int) -> str:
+    """The ``kernels``-line entry of attention in ``dt`` at head dim hd."""
+    return (ATTENTION_WIDE if hd > 256 else ATTENTION_KERNEL)[dt]
 # the wgmma kernel's P.V takes two products (P split into hi and lo), so
 # its tensor cores issue 1.5x the useful operations
 BF16_ISSUED = 1.5
@@ -473,10 +562,11 @@ def ptxas_spills(report: str) -> dict:
 
 def attention_sass(_build) -> dict:
     """Every instance of the attention kernels, one per (input type, head
-    dim): the wgmma kernel's must show HGMMA (wgmma) and UTMALDG (TMA
-    loads) in its SASS, and none of either library may have spilled (0
-    spill-store bytes in ptxas's report of this build, where this process
-    built it, and no local memory in ``cuobjdump -res-usage``)."""
+    dim; the wide kernel one per input type): the wgmma kernel's must show
+    HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS, and none of the
+    three libraries may have spilled (0 spill-store bytes in ptxas's
+    report of this build, where this process built it, and no local
+    memory in ``cuobjdump -res-usage``)."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     # the f32 kernel at each built head dim, the wgmma kernel at each
@@ -485,7 +575,10 @@ def attention_sass(_build) -> dict:
         "flash_attention": [f"flash_fwd_kernelILi{d}E" for d in HEAD_DIMS],
         "flash_attention_wgmma": [f"flash_wgmma_kernelI{t}Li{d}E"
                                   for t in ("13__nv_bfloat16", "6__half")
-                                  for d in HEAD_DIMS]}
+                                  for d in HEAD_DIMS],
+        "flash_attention_wide": [f"flash_wide_kernelI{t}E"
+                                 for t in ("f", "13__nv_bfloat16",
+                                           "6__half")]}
     out = {}
     for lib, names in instances.items():
         parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
@@ -517,8 +610,9 @@ def fwht_sass(_build) -> dict:
     """The FWHT kernel's shared-memory and shuffle instructions at d = 4096
     in f32 (LDS, STS, SHFL in its SASS), its registers, static shared and
     local bytes (``cuobjdump -res-usage``); fails unless the transposes and
-    the exchange are there and no instance of the kernel uses local memory
-    (ptxas spilled nothing)."""
+    the exchange are there and no instance of the library (the further
+    launches of rows past 16,384 among them) uses local memory (ptxas
+    spilled nothing)."""
     parts = re.split(r"Function : (\S+)", cuobjdump(_build, "fwht", "-sass"))
     bodies = [body for name, body in zip(parts[1::2], parts[2::2])
               if FWHT_MAIN in name]
@@ -531,9 +625,15 @@ def fwht_sass(_build) -> dict:
     check(len(main) == 1, f"no single {FWHT_MAIN} in cuobjdump -res-usage")
     check(all(u["local"] == 0 for u in usage.values()),
           "an fwht kernel uses local memory (ptxas spilled)")
+    # the further launches of rows past 16,384 (one instance a bit count
+    # and output)
+    high = [u["registers"] for name, u in usage.items()
+            if "fwht_high_kernel" in name]
+    check(high, "no fwht_high_kernel in cuobjdump -res-usage")
     # the launcher's dynamic shared memory at d = 4096: one f32 tile
     return dict(function=FWHT_MAIN, counts=counts, **main[0],
-                dynamic_shared_bytes=4 * 4096)
+                dynamic_shared_bytes=4 * 4096, instances=len(usage),
+                high_instances=len(high), high_max_registers=max(high))
 
 
 def res_usage(_build, name: str) -> dict:
@@ -547,10 +647,19 @@ def res_usage(_build, name: str) -> dict:
 
 
 # the main instances of the encode and the single decode: 4-bit colors
-# (q = 16) and 16-byte accesses, template <BITS = 4, VEC = 4, ...>; the
-# encode's third and fourth template arguments are ANCHOR and COORDS
-LATTICE_MAIN = {"lattice_encode": "lattice_encode_kernelILi4ELi4E",
-                "lattice_decode": "lattice_decode_kernelILi4ELi4E"}
+# (q = 16), 16-byte accesses and q a power of two, template <BITS = 4,
+# VEC = 4, ..., POW2 = true>; the encode's other template arguments are
+# ANCHOR and COORDS, the decode's COORDS, REF and AVG
+LATTICE_MAIN = {"lattice_encode": r"lattice_encode_kernelILi4ELi4E(Lb\dE){2}Lb1EE",
+                "lattice_decode": r"lattice_decode_kernelILi4ELi4E(Lb\dE){3}Lb1EE"}
+# the instances of the shapes the reference's kernels do not take, by
+# library: 1-bit colors (BITS = 1) beside the main instances, and q not a
+# power of two (POW2 = false, the last template argument) in the ``_any``
+# libraries
+LATTICE_NEW = {"lattice_encode": ("bits1", r"kernelILi1E"),
+               "lattice_decode": ("bits1", r"kernelILi1E"),
+               "lattice_encode_any": ("not_pow2", r"Lb0EEEv"),
+               "lattice_decode_any": ("not_pow2", r"Lb0EEEv")}
 
 
 def lattice_sass(_build) -> dict:
@@ -558,20 +667,28 @@ def lattice_sass(_build) -> dict:
     f32 and int32 streams with 128-bit global loads and stores
     (``LDG.E.128``, ``STG.E.128`` in the SASS; the encode without coords
     stores only its 16-bit units of words), and no instance of any kernel
-    in the two libraries may use local memory or a stack frame (ptxas
-    spilled nothing)."""
+    in the four lattice libraries may use local memory or a stack frame
+    (ptxas spilled nothing): the instances of 1-bit colors and of q not a
+    power of two among them, which are counted, with their registers."""
     out = {}
-    for lib, main in LATTICE_MAIN.items():
-        parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
-        bodies = {name: body for name, body in zip(parts[1::2], parts[2::2])
-                  if main in name}
-        check(len(bodies) == (4 if lib == "lattice_encode" else 6),
-              f"{lib}: {len(bodies)} main instances ({main}) in the SASS")
+    for lib, (tag, pat) in LATTICE_NEW.items():
         usage = res_usage(_build, lib)
         check(usage and all(u["local"] == 0 and u["stack"] == 0
                             for u in usage.values()),
               f"a {lib} kernel uses local memory or a stack frame (ptxas "
               f"spilled): {usage}")
+        regs = [u["registers"] for fn, u in usage.items()
+                if re.search(pat, fn)]
+        check(regs, f"{lib}: no instance of {tag} in the SASS")
+        out[lib] = {"instances": len(usage), tag: dict(
+            instances=len(regs), max_registers=max(regs))}
+    for lib, main in LATTICE_MAIN.items():
+        parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
+        bodies = {name: body for name, body in zip(parts[1::2], parts[2::2])
+                  if re.search(main, name)}
+        check(len(bodies) == (4 if lib == "lattice_encode" else 6),
+              f"{lib}: {len(bodies)} main instances ({main}) in the SASS")
+        usage = res_usage(_build, lib)
         inst = {}
         for name, body in bodies.items():
             ops = re.findall(r"\b((?:LDG|STG)(?:\.[A-Z0-9_]+)+)", body)
@@ -586,7 +703,7 @@ def lattice_sass(_build) -> dict:
                   f"{lib} {name}: its streams do not move by 128-bit "
                   f"global loads and stores: {c}")
             inst[name] = c
-        out[lib] = dict(main_instances=inst, max_registers=max(
+        out[lib].update(main_instances=inst, max_registers=max(
             u["registers"] for u in usage.values()))
     return out
 
@@ -867,6 +984,210 @@ def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
                 bitwise_cases=cases)
 
 
+# the kernels at the shapes the reference's kernels do not take: color
+# spaces (1-bit q = 2; q = 3 and 12, not powers of two), a payload of n < 32
+# and FWHT rows of 2 and past 16,384: (rows, d) of each FWHT check
+SHAPE_QS = (2, 3, 12)
+SHAPE_N = 31
+FWHT_SHAPES = ((4_239, 1 << 16), (264, 1 << 20), (FULL_D // 2, 2))
+
+
+def encode_check(torch, x, u, sides, q: int, bucket: int) -> dict:
+    """The encode (words and coords, per-bucket sides, no anchor) at color
+    space q: bitwise against its plain version on ``ends(n)``, timed at the
+    full shape."""
+    from repro_torch.core import lattice as L
+    from repro_torch.kernels import ops, ref
+
+    n = x.shape[0]
+    bits = L.bits_for_q(q)
+    per = 32 // bits
+    words, k = ops.lattice_encode(x, u, sides, q=q, return_coords=True,
+                                  bucket=bucket)
+    torch.cuda.synchronize()
+    err = 0.0
+    for c0, c1 in ends(n):
+        ww, wk = ref.lattice_encode_ref(
+            x[c0:c1], u[c0:c1], sides[c0 // bucket:-(-c1 // bucket)], q=q,
+            bits=bits, return_coords=True, bucket=bucket)
+        got_w = words[c0 // per:-(-c1 // per)]
+        check(torch.equal(got_w, ww) and torch.equal(k[c0:c1], wk),
+              f"lattice_encode at q = {q}, n = {n} disagrees with its plain "
+              f"version (coordinates {c0}:{c1})")
+        err = max(err, max_abs_err(torch, got_w, ww),
+                  max_abs_err(torch, k[c0:c1], wk))
+    del words, k
+
+    def call():
+        ops.lattice_encode(x, u, sides, q=q, return_coords=True,
+                           bucket=bucket)
+    ms = cuda_ms(torch, call)
+    dms, reps = device_ms(torch, call)
+
+    def plain():
+        for c0 in range(0, n, SLICE):
+            c1 = min(n, c0 + SLICE)
+            ref.lattice_encode_ref(x[c0:c1], u[c0:c1],
+                                   sides[c0 // bucket:-(-c1 // bucket)], q=q,
+                                   bits=bits, return_coords=True,
+                                   bucket=bucket)
+    nb = sides.shape[0]
+    b, by = bound(n * (4 + 4 + bits / 8 + 4) + nb * 4, n * 4)
+    return dict(ms=ms, plain_ms=cuda_ms(torch, plain, reps=1), bound_ms=b,
+                bound_by=by, library_ms=None, max_abs_err=err,
+                shape=f"N={n}, q={q}, coords", device_ms=dms, reps=reps,
+                share_of_bound=b / dms)
+
+
+def single_decode_check(torch, x, u, sides, q: int, bucket: int, g) -> dict:
+    """The single decode of one random payload at color space q against
+    anchor x, coords mode with per-bucket sides, as the butterfly and
+    recursive halving launch it: bitwise against its plain version on
+    ``ends(n)``, timed at the full shape."""
+    from repro_torch.core import lattice as L
+    from repro_torch.kernels import ops, ref
+
+    n = x.shape[0]
+    bits = L.bits_for_q(q)
+    per = 32 // bits
+    words = torch.randint(-(1 << 31), (1 << 31) - 1, (L.packed_len(n, bits),),
+                          generator=g, device=x.device, dtype=torch.int32)
+    got = ops.lattice_decode(words, x, u, sides, q=q, mode="coords",
+                             bucket=bucket)
+    torch.cuda.synchronize()
+    err = 0.0
+    for c0, c1 in ends(n):
+        want = ref.lattice_decode_ref(
+            words[c0 // per:-(-c1 // per)], x[c0:c1], u[c0:c1],
+            sides[c0 // bucket:-(-c1 // bucket)], q=q, bits=bits, n=c1 - c0,
+            mode="coords", bucket=bucket)
+        check(torch.equal(got[c0:c1], want),
+              f"lattice_decode at q = {q}, n = {n} disagrees with its plain "
+              f"version (coordinates {c0}:{c1})")
+        err = max(err, max_abs_err(torch, got[c0:c1], want))
+    del got
+
+    def call():
+        ops.lattice_decode(words, x, u, sides, q=q, mode="coords",
+                           bucket=bucket)
+    ms = cuda_ms(torch, call)
+    dms, reps = device_ms(torch, call)
+
+    def plain():
+        for c0 in range(0, n, SLICE):
+            c1 = min(n, c0 + SLICE)
+            ref.lattice_decode_ref(
+                words[c0 // per:-(-c1 // per)], x[c0:c1], u[c0:c1],
+                sides[c0 // bucket:-(-c1 // bucket)], q=q, bits=bits,
+                n=c1 - c0, mode="coords", bucket=bucket)
+    nb = sides.shape[0]
+    b, by = bound(n * (bits / 8 + 4 + 4 + 4) + nb * 4, n * 4)
+    return dict(ms=ms, plain_ms=cuda_ms(torch, plain, reps=1), bound_ms=b,
+                bound_by=by, library_ms=None, max_abs_err=err,
+                shape=f"N={n}, q={q}, coords, per-bucket sides",
+                device_ms=dms, reps=reps, share_of_bound=b / dms)
+
+
+def fwht_shape_check(torch, rows: int, d: int, g) -> dict:
+    """The FWHT over (rows, d) f32 and bf16: bitwise against its plain
+    version on the leading rows that hold ``SLICE`` coordinates, launches
+    counted, timed at the full shape.  The bound is one read and one write
+    of the data; rows past 16,384 take 1 + ``fwht_passes`` launches, each
+    a read and a write.  The yardstick (``library_ms``) is one product
+    with the scaled Hadamard matrix where it fits (d = 2); past 16,384 the
+    matrix alone (d^2 f32) would not fit on the card: none."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.fwht import fwht_passes
+
+    dev = torch.device("cuda")
+    x = torch.randn((rows, d), generator=g, device=dev)
+    cmp_rows = max(1, min(rows, SLICE // d))
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xt = x.to(dt)
+        before = _build.LAUNCHES["fwht"]
+        y = ops.fwht(xt)
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES["fwht"] - before
+        check(launches == 1 + len(fwht_passes(d)),
+              f"fwht of ({rows}, {d}): {launches} launches")
+        it = torch.int32 if dt == torch.float32 else torch.int16
+        want = ref.fwht_ref(xt[:cmp_rows])
+        check(torch.equal(y[:cmp_rows].view(it), want.view(it)),
+              f"fwht of ({rows}, {d}) {dt} disagrees with its plain version")
+        err = max_abs_err(torch, y[:cmp_rows], want)
+        del y, want
+        ms = cuda_ms(torch, lambda: ops.fwht(xt), reps=20)
+        dms, reps = device_ms(torch, lambda: ops.fwht(xt))
+
+        def plain():
+            for r0 in range(0, rows, cmp_rows):
+                ref.fwht_ref(xt[r0:r0 + cmp_rows])
+        plain_ms = cuda_ms(torch, plain, reps=1)
+        n = rows * d
+        elt = xt.element_size()
+        # log2(d) stages and the scale a coordinate
+        b, by = bound(n * 2 * elt, n * d.bit_length())
+        tag = "" if dt == torch.float32 else "bf16_"
+        out.update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
+                    f"{tag}bound_ms": b, f"{tag}device_ms": dms,
+                    f"{tag}reps": reps, f"{tag}share_of_bound": b / dms,
+                    f"{tag}max_abs_err": err, f"{tag}launches_a_call": launches})
+        if dt == torch.float32:
+            out["bound_by"] = by
+        del xt
+    lib = None
+    if d == 2:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        h = ref.fwht_ref(torch.eye(d, device=dev))
+        lib = cuda_ms(torch, lambda: torch.matmul(x, h), reps=3)
+    del x
+    torch.cuda.empty_cache()
+    out.update(library_ms=lib, shape=f"({rows}, {d}) f32 and bf16",
+               max_abs_err=max(out["max_abs_err"], out["bf16_max_abs_err"]))
+    return out
+
+
+def shape_kernel_checks(torch, n_pad: int, bucket: int, senders: int,
+                        seed: int) -> dict:
+    """Each kernel instance of the shapes the reference's kernels do not
+    take against its plain version at full width (n_pad coordinates,
+    per-bucket sides of ``bucket``, ``senders`` payloads for the batched
+    decode): the encode, the single decode and the batched decode at each
+    of ``SHAPE_QS``; the encode and the single decode at n = 31; the FWHT
+    at each of ``FWHT_SHAPES``.  One ``kernel_check`` line each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    nb = n_pad // bucket
+    x = torch.randn(n_pad, generator=g, device=dev)
+    u = torch.rand(n_pad, generator=g, device=dev) - 0.5
+    out = {}
+    for q in SHAPE_QS:
+        # sides about the round's (y0 = 0.25), drawn per bucket
+        sides = 2 * 0.25 / (q - 1) * (0.5 + torch.rand(nb, generator=g,
+                                                       device=dev))
+        out[f"lattice_encode_q{q}"] = encode_check(torch, x, u, sides, q,
+                                                   bucket)
+        out[f"lattice_decode_q{q}"] = single_decode_check(torch, x, u, sides,
+                                                          q, bucket, g)
+        out[f"lattice_decode_batched_q{q}"] = batched_decode_check(
+            torch, x, u, q, senders, bucket, g)
+        torch.cuda.empty_cache()
+    sides = 2 * 0.25 / 15 * (0.5 + torch.rand(1, generator=g, device=dev))
+    xs, us = x[:SHAPE_N].clone(), u[:SHAPE_N].clone()
+    out[f"lattice_encode_n{SHAPE_N}"] = encode_check(torch, xs, us, sides, 16,
+                                                     bucket)
+    out[f"lattice_decode_n{SHAPE_N}"] = single_decode_check(
+        torch, xs, us, sides, 16, bucket, g)
+    del x, u
+    torch.cuda.empty_cache()
+    for rows, d in FWHT_SHAPES:
+        out[f"fwht_d{d}"] = fwht_shape_check(torch, rows, d, g)
+    for name, r in out.items():
+        say("kernel_check", name=name, **r)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: the round at full width
 # ---------------------------------------------------------------------------
@@ -1035,7 +1356,7 @@ def rounds_ab(torch, d: int, n_clients: int, seed: int):
 # Phase 10: card vs CPU, and the streaming drain
 # ---------------------------------------------------------------------------
 
-def small_rounds(torch, seed: int) -> None:
+def small_rounds(torch, seed: int) -> dict:
     import numpy as np
 
     from repro_torch.agg.client import AggClient
@@ -1058,6 +1379,38 @@ def small_rounds(torch, seed: int) -> None:
     check(np.array_equal(means["cuda"].view(np.uint32),
                          means["cpu"].view(np.uint32)),
           "small round: the card's mean differs from the CPU's")
+
+    # drains at q = 3 (2-bit colors, q not a power of two) and q = 2 (1-bit
+    # colors), each its own path on the card (the counts set to 0 just
+    # before it and read just after), then on the CPU: the same clients
+    # accepted, the same mean bit for bit
+    from repro_torch.kernels import _build
+    drains = {}
+    for q in (3, 2):
+        spec_q = dataclasses.replace(spec, round_id=7 + q,
+                                     cfg=QSyncConfig(q=q, bucket=4096))
+        got = {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                _build.reset_launch_counts()
+            server = AggServer(spec_q, base, device=dev)
+            for i in range(n):
+                server.receive(AggClient(spec_q, i, xs[i],
+                                         device=dev).payload())
+            mean, stats = server.finalize()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                drains[q] = dict(_build.LAUNCHES)    # read just after
+            got[dev] = (mean.cpu().numpy(), stats.accepted)
+        check(got["cuda"][1] == got["cpu"][1]
+              and np.array_equal(got["cuda"][0].view(np.uint32),
+                                 got["cpu"][0].view(np.uint32)),
+              f"small round at q = {q}: the card's drain differs from the "
+              f"CPU's (accepted {got['cuda'][1]} against {got['cpu'][1]})")
+        check(drains[q]["lattice_encode"] > 0
+              and drains[q]["lattice_decode_batched"] > 0,
+              f"small round at q = {q}: a kernel was not launched: "
+              f"{drains[q]}")
 
     spec_w = dataclasses.replace(spec, round_id=6, mtu=4096, window=4)
     sealed = AggServer(spec_w, base, streaming=False)
@@ -1090,7 +1443,8 @@ def small_rounds(torch, seed: int) -> None:
           "streaming round differs from the sealed drain")
     say("small_rounds", d=d, clients=n, card_equals_cpu=True,
         chunks_per_client=len(clients[0].frames()),
-        streaming_equals_sealed=True)
+        streaming_equals_sealed=True, drain_launches=drains)
+    return drains
 
 
 # ---------------------------------------------------------------------------
@@ -1278,6 +1632,117 @@ def collective_rank_main(torch, rank: int, world: int, seed: int) -> dict:
               and torch.equal(res[0][1], res[1][1]),
               f"rank {rank} small {name}: the card differs from the CPU")
     out["small_card_equals_cpu"] = True
+    out["shape_paths"] = shape_paths(torch, rank, seed, dev)
+    return out
+
+
+# the small paths of the shapes the reference's kernels do not take, each
+# run on the card and on the CPU: (tag, collectives, q, bucket, rotate, d,
+# y); the q = 2 runs with a tiny y are the paper's §5 failure cases
+SHAPE_PATHS = (
+    ("q2_fails", ("star", "butterfly", "rh"), 2, 4096, False, 1 << 18, 1e-3),
+    ("q3", ("star", "butterfly", "rh"), 3, 4096, False, 1 << 18, 0.25),
+    ("q12_rot", ("star", "butterfly", "rh"), 12, 32768, True, 1 << 18, 0.25),
+    ("d65536_rot", ("star", "butterfly"), 16, 1 << 16, True, 1 << 18, 0.25),
+    ("d1048576_rot", ("star", "butterfly"), 16, 1 << 20, True, 1 << 20,
+     0.25),
+    ("n31", ("butterfly",), 16, 1, False, 31, 0.25),
+    ("n31_rot", ("butterfly",), 16, 2, True, 31, 0.25),
+)
+
+
+def shape_paths(torch, rank: int, seed: int, dev) -> dict:
+    """The collectives at the shapes the reference's kernels do not take,
+    at world 4, each tag of ``SHAPE_PATHS`` its own path (the counts set
+    to 0 just before its card runs and read just after): the star,
+    butterfly and recursive halving at q = 2 with a tiny y (decode
+    failures, paper §5), at q = 3, and at q = 12 rotated with bucket
+    32,768 (rows of the FWHT past 16,384); the star and the butterfly
+    rotated with buckets of 65,536 and of 1,048,576 (the widths of the
+    FWHT's checks); the butterfly over 31
+    coordinates with bucket 1 (n < 32) and rotated with bucket 2 (FWHT
+    rows of 2); one FSDP gradient sync at q = 2 with a tiny y (the
+    ``lq-fails`` case).  Each runs on the card and then on the CPU: means
+    and telemetry bitwise equal, and the same failures."""
+    import numpy as np
+
+    from repro_torch import random as R
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import fsdp as F
+    from repro_torch.kernels import _build
+
+    cpu = torch.device("cpu")
+    key = R.PRNGKey(seed)
+    fns = {"star": C.allgather_allreduce_mean,
+           "butterfly": C.butterfly_allreduce_mean,
+           "rh": C.rh_reduce_scatter_mean}
+    out = {}
+    for tag, names, q, bucket, rotate, d, y0 in SHAPE_PATHS:
+        cfg = C.QSyncConfig(q=q, bucket=bucket, rotate=rotate)
+        base = np.random.RandomState(seed).randn(d).astype(np.float32)
+        x = (base + 0.02 * np.random.RandomState(seed + 1 + rank)
+             .randn(d)).astype(np.float32)
+        runs = {}
+        _build.reset_launch_counts()
+        for on_card, dv in ((True, dev), (False, cpu)):
+            for name in names:
+                xin = torch.from_numpy(x).to(dv)
+                n = C.flat_size_padded(d, bucket)
+                if name == "rh":
+                    n = F.pad_to_shardable(d, 4, bucket)
+                    xin = torch.nn.functional.pad(xin, (0, n - d))
+                o, aux = fns[name](xin, torch.full((n // bucket,), y0,
+                                                   device=dv), key, cfg)
+                runs[on_card, name] = (
+                    o.cpu().view(torch.int32), float(aux.fails),
+                    aux.fails_b.cpu(), aux.dist_b.cpu().view(torch.int32))
+            if on_card:
+                torch.cuda.synchronize()
+                launches = dict(_build.LAUNCHES)   # read just after the path
+        fails = {}
+        for name in names:
+            a, b = runs[True, name], runs[False, name]
+            check(a[1] == b[1] and all(torch.equal(u, v) for u, v in
+                                       zip(a[:1] + a[2:], b[:1] + b[2:])),
+                  f"rank {rank} {tag} {name}: the card differs from the CPU "
+                  f"(fails {a[1]} against {b[1]})")
+            fails[name] = a[1]
+        if tag == "q2_fails":
+            check(all(f > 0 for f in fails.values()),
+                  f"rank {rank} {tag}: a failure case detected nothing: "
+                  f"{fails}")
+        out[tag] = dict(launches=launches, fails=fails)
+
+    # one FSDP gradient sync of the lq-fails case: the gather's forward and
+    # backward (recursive halving at q = 2) of a 1,024-element shard
+    shard, fb = 1024, 64
+    nbk = 4 * shard // fb
+    rng = np.random.RandomState(seed + 21)
+    w_all = rng.randn(4, shard).astype(np.float32)
+    ct = (rng.randn(4 * shard)[None] + 0.05 * rng.randn(4, 4 * shard)
+          ).astype(np.float32)[rank]
+    cfg = F.FSDPConfig(qcfg=C.QSyncConfig(q=2, bucket=fb))
+    res = []
+    _build.reset_launch_counts()
+    for on_card, dv in ((True, dev), (False, cpu)):
+        w = torch.from_numpy(w_all[rank]).to(dv).requires_grad_()
+        tele = torch.zeros(F.tele_width(nbk), device=dv, requires_grad=True)
+        o = F.make_fsdp_gather(cfg)({
+            "w": w, "y": torch.full((nbk,), 1e-3, device=dv),
+            "key": R.PRNGKey(3), "tele": tele})
+        o.backward(torch.from_numpy(ct).to(dv).to(o.dtype))
+        if on_card:
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)       # read just after the path
+        res.append([t.detach().float().cpu().view(torch.int32)
+                    for t in (o, w.grad, tele.grad)])
+    check(all(torch.equal(a, b) for a, b in zip(*res)),
+          f"rank {rank} fsdp lq-fails: the card differs from the CPU")
+    fails_b = res[0][2][F.TELE_WIDTH + nbk:].view(torch.float32)
+    check(float(fails_b.sum()) > 0,
+          f"rank {rank} fsdp lq-fails: no decode failure detected")
+    out["fsdp_lq_fails"] = dict(launches=launches,
+                                fails=float(fails_b.sum()))
     return out
 
 
@@ -1442,7 +1907,25 @@ def collectives(seed: int) -> dict:
                                   "path_seconds", "held_gb", "added_gb",
                                   "bytes_sent", "bounds",
                                   "small_card_equals_cpu")} for r in ranks])
-    return launches
+    # the shape paths: each path's launches summed over the ranks; every
+    # kernel a path runs was launched there
+    paths = {}
+    for tag in ranks[0]["shape_paths"]:
+        got = [r["shape_paths"][tag] for r in ranks]
+        paths[tag] = {k: sum(g["launches"][k] for g in got)
+                      for k in COLLECTIVE_KERNELS}
+        names = next((p[1] for p in SHAPE_PATHS if p[0] == tag), ("rh",))
+        rotate = next((p[4] for p in SHAPE_PATHS if p[0] == tag), False)
+        need = (["lattice_encode"]
+                + (["lattice_decode_batched"] if "star" in names else [])
+                + (["lattice_decode"] if {"butterfly", "rh"} & set(names)
+                   else []) + (["fwht"] if rotate else []))
+        for k in need:
+            check(paths[tag][k] > 0, f"kernel {k} was not launched on the "
+                  f"{tag} path")
+        say("collectives_shapes", path=tag, launches=paths[tag],
+            fails=[g["fails"] for g in got], card_equals_cpu=True)
+    return launches, paths
 
 
 # ---------------------------------------------------------------------------
@@ -3760,10 +4243,11 @@ def attention_pairs(sq: int, sk: int, causal: bool) -> int:
 
 
 def attention(torch, seed: int):
-    """The attention phase: three main paths, the bf16 and the f16 cases
-    (two instances of the wgmma kernel) and the f32 cases (the CUDA-core
-    kernel), each driven with the counts set to 0 just before it and read
-    just after.  The comparison with the plain version reuses the kept
+    """The attention phase: one main path for each kernel entry, the bf16
+    and the f16 cases (two instances of the wgmma kernel), the f32 cases
+    (the CUDA-core kernel) and the cases past head dim 256 in bf16 and f32
+    (the wide kernel), each driven with the counts set to 0 just before it
+    and read just after.  The comparison with the plain version reuses the kept
     outputs and launches nothing.  Returns {kernel: (kernels-line entry,
     launches)}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3772,10 +4256,13 @@ def attention(torch, seed: int):
 
     torch.cuda.empty_cache()
     out = {}
-    for dt, name in ATTENTION_KERNEL.items():
-        cases, launches, path_s = attention_path(
-            torch, ops, _build, [c for c in ATTENTION_CASES if c[6] == dt],
-            seed)
+    groups = {}
+    for c in ATTENTION_CASES:
+        groups.setdefault(attention_kernel(c[6], c[3]), []).append(c)
+    for name, cases_in in groups.items():
+        dt = cases_in[0][6]
+        cases, launches, path_s = attention_path(torch, ops, _build,
+                                                 cases_in, seed)
         check(launches > 0, f"kernel {name} was not launched on the "
               f"{dt} attention path")
         results = []
@@ -3801,9 +4288,27 @@ def attention(torch, seed: int):
                   f"{c['label']} (causal={causal}): max |diff| = {err}, "
                   f"{share} of rtol={rtol}, atol={atol}")
 
+            # the first of SDPA's backends that takes the shape, in its own
+            # order of preference (flash, then memory-efficient: what the
+            # two together pick), then cuDNN and the plain math one
+            backend = None
+            for be in (SDPBackend.FLASH_ATTENTION,
+                       SDPBackend.EFFICIENT_ATTENTION,
+                       SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+                try:
+                    with sdpa_kernel([be]):
+                        torch.nn.functional.scaled_dot_product_attention(
+                            q[None, :1], k[None, :1], v[None, :1],
+                            is_causal=causal)
+                    backend = be
+                    break
+                except RuntimeError:
+                    continue
+            check(backend is not None, f"no SDPA backend takes "
+                  f"{c['label']}")
+
             def library(n=bh):
-                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                                  SDPBackend.EFFICIENT_ATTENTION]):
+                with sdpa_kernel([backend]):
                     return torch.nn.functional.scaled_dot_product_attention(
                         q[None, :n], k[None, :n], v[None, :n],
                         is_causal=causal)[0]
@@ -3830,6 +4335,7 @@ def attention(torch, seed: int):
                      share_of_bound=b / c["ms"], library_ms=lib_ms,
                      max_abs_err=err, rtol=rtol, atol=atol,
                      share_of_limit=share, sdpa_share_of_limit=sdpa_share,
+                     sdpa_backend=backend.name,
                      useful_tflop=useful / 1e12,
                      tflop_per_s=useful / c["ms"] / 1e9)
             if dt != "float32":
@@ -4045,9 +4551,11 @@ def smoke(torch, seed: int) -> int:
                           cfg=QSyncConfig(q=16, bucket=4096))
     checks = kernel_checks(torch, spec.padded, spec.cfg.bucket, CLIENTS,
                            seed)
+    checks.update(shape_kernel_checks(torch, spec.padded, spec.cfg.bucket,
+                                      CLIENTS, seed))
     counts = rounds_ab(torch, FULL_D, CLIENTS, seed)
     torch.cuda.empty_cache()
-    coll = collectives(seed)
+    coll, paths = collectives(seed)
     counts = {k: counts[k] + coll[k] for k in COLLECTIVE_KERNELS}
     train, ranks = train_internvl2(seed)
     counts = {k: counts[k] + train[k] for k in COLLECTIVE_KERNELS}
@@ -4074,14 +4582,21 @@ def smoke(torch, seed: int) -> int:
     for phase in (agg_service, agg_tree, agg_engine_small):
         got = phase(torch, seed)
         counts = {k: counts[k] + got[k] for k in COLLECTIVE_KERNELS}
-    small_rounds(torch, seed)
+    drains = small_rounds(torch, seed)
+    # each instance of the new shapes: its kernel's launches on the paths
+    # that run that instance
+    paths.update({f"drain_q{q}": got for q, got in drains.items()})
+    for name, (k, _, tags) in SHAPE_INSTANCES.items():
+        counts[name] = sum(paths[t][k] for t in tags)
+        check(counts[name] > 0, f"{name} was not launched on its paths "
+              f"{tags}")
     host_costs(torch, FULL_D, seed)
     for name, (entry, launches) in attention(torch, seed).items():
         checks[name], counts[name] = entry, launches
     paper_algorithms(torch, seed)
 
     kernels = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
+    for name, (source, replaces) in kernel_sources().items():
         r = checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

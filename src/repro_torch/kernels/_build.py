@@ -34,8 +34,11 @@ from repro_torch.core import lattice as L
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lattice_encode", "lattice_decode", "fwht", "flash_attention",
-           "flash_attention_wgmma")
+# the lattice kernels for q a power of two and for q not one are two
+# libraries each, so that their many instances build in parallel
+SOURCES = ("lattice_decode", "lattice_decode_any", "lattice_encode",
+           "lattice_encode_any", "fwht", "flash_attention",
+           "flash_attention_wgmma", "flash_attention_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -139,11 +142,32 @@ def check(err: int, kernel: str) -> None:
                            f"{err}")
 
 
+# the largest color space: bits_for_q raises past 16 bits per color
+MAX_Q = 1 << 16
+
+
 @functools.cache
 def lattice_bits(q: int) -> int:
     """``core.lattice.bits_for_q``, computed once per q: it goes through
-    numpy, microseconds a call that every launch would pay."""
+    numpy, microseconds a call that every launch would pay.  Raises for q
+    outside [1, MAX_Q], as the reference's ``bits_for_q`` does."""
+    if not 1 <= q <= MAX_Q:
+        raise ValueError(f"q must be in [1, {MAX_Q}] (at most 16 bits per "
+                         f"color), got {q}")
     return L.bits_for_q(q)
+
+
+def pow2(q: int) -> bool:
+    """Whether q takes the lattice kernels' power-of-two library (else
+    their ``_any`` one)."""
+    return q & (q - 1) == 0
+
+
+def lattice_library(name: str, q_pow2: bool) -> str:
+    """The library (and ``csrc`` source) that the lattice kernels' source
+    ``name`` (``lattice_encode`` or ``lattice_decode``) builds for q a power
+    of two (``q_pow2``, :func:`pow2`), or for q not one: its ``_any`` one."""
+    return name if q_pow2 else name + "_any"
 
 
 def current_stream(device: torch.device) -> int:
@@ -156,14 +180,14 @@ def current_stream(device: torch.device) -> int:
 
 
 def check_lattice_shape(kernel: str, q: int, bits: int, n: int) -> None:
-    """Raise unless (q, n) is a shape the lattice kernels take: the
-    reference's kernel shapes, q a power of two with 2, 4, 8 or 16 bits per
-    color and n >= 32 coordinates."""
-    if q < 1 or q & (q - 1) or bits not in (2, 4, 8, 16):
-        raise ValueError(f"the {kernel} kernel needs q a power of two with "
-                         f"2, 4, 8 or 16 bits per color, got q={q}")
-    if n < 32:
-        raise ValueError(f"the {kernel} kernel needs n >= 32 coordinates, "
+    """Raise unless (q, n) is a shape the lattice kernels take: every shape
+    the reference computes, q in [1, MAX_Q] (``bits``, its
+    :func:`lattice_bits`, 1 to 16) and n >= 1 coordinates."""
+    if not 1 <= q <= MAX_Q:
+        raise ValueError(f"the {kernel} kernel needs q in [1, {MAX_Q}], got "
+                         f"q={q}")
+    if n < 1:
+        raise ValueError(f"the {kernel} kernel needs n >= 1 coordinates, "
                          f"got {n}")
 
 

@@ -5,14 +5,16 @@
 // Here the transform is the textbook butterfly, (a, b) -> (a + b, a - b)
 // over index bit 0, 1, 2, ..., log2(d) - 1 in that order, then one product
 // with float32(1/sqrt(d)).  Input and output are f32, or bf16 with f32
-// inside (rounded to nearest even once, at the store); d is a power of two
-// in [4, 16384], the reference kernel's range.
+// inside (rounded to nearest even once, at the store); d is any power of
+// two: the reference's kernel takes [4, 16384] and sends other lengths to
+// its plain version, which computes the same function.
 //
 // Bitwise with the plain version (fwht_torch).  Every stage is one
 // __fadd_rn / __fsub_rn with `a` the lower index, the stages run in the
 // plain version's order (bit 0 first), and the scale is one __fmul_rn
-// after the last stage.  Which bits sit in registers, lanes or warps only
-// moves values around; it never changes what is added to what, or when.
+// after the last stage.  Which bits sit in registers, lanes or warps, and
+// which launch runs a stage, only moves values around; it never changes
+// what is added to what, or when.
 //
 // Bound on this card: HBM.  Each coordinate is read once and written once:
 // 8 bytes a coordinate in f32, 4 in bf16.  The log2(d) adds a coordinate
@@ -47,10 +49,28 @@
 // up to six 256-thread blocks an SM, one block's loads are in flight while
 // another's stages run.
 //
+// d = 1 and 2 are rows of the same tile kernel with no stage or one.
+//
+// Rows longer than a tile, d = 2^L with L > 14, take several launches
+// (fwht_pass_launch).  The first is the tile kernel over index bits 0-13
+// of each row (rows of 16384), unscaled, writing f32 (into the output for
+// f32, into a scratch tensor the wrapper allocates for bf16).  Each further
+// launch (fwht_high_kernel) runs the stages of K <= 8 of the high index
+// bits, b0 .. b0 + K - 1, in place on that f32 tensor: a block takes a
+// tile of 2^K rows of those bits (2^b0 elements apart) by 4096 / 2^K
+// consecutive columns, the same column across a warp so that every load
+// and store is a coalesced run; a thread holds 16 values, 4 bits of
+// stages in registers at a time, the next 4 through shared memory.  Only
+// the last launch scales and rounds to the output type.  Intermediates
+// stay f32 between launches, so the sums are the plain version's.  Each
+// launch reads and writes the row once more: 1 + ceil((L - 14) / 8)
+// passes over the data in all.
+//
 // A pointer that is not on a 16-byte boundary (a view that starts inside a
 // row of a small bf16 tensor) takes the same kernel with one-element loads
 // and stores.  No allocation; the launch goes on the caller's stream.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -62,7 +82,7 @@ template <int L>
 struct Geo {
   static constexpr int TB = L > 12 ? L : 12;         // tile bits
   static constexpr int THREADS = 1 << (TB - 4);
-  static constexpr int PASSES = (L + 3) / 4;
+  static constexpr int PASSES = L > 4 ? (L + 3) / 4 : 1;
   // six 256-thread blocks an SM (at most 40 registers a thread)
   static constexpr int MIN_BLOCKS = THREADS >= 1024 ? 1 : 1536 / THREADS;
 };
@@ -214,10 +234,13 @@ __device__ __forceinline__ void exchange(float (&v)[kRegs], int lane) {
   }
 }
 
-template <typename T, int L, bool VEC_IO>
+// T in, TO out; SCALE false (the first launch of a longer row) leaves the
+// scale to the last launch.
+template <typename T, int L, bool VEC_IO, typename TO = T, bool SCALE = true>
 __global__ void __launch_bounds__(Geo<L>::THREADS, Geo<L>::MIN_BLOCKS)
-fwht_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, float scale) {
-  constexpr int TB = Geo<L>::TB, P = Geo<L>::PASSES, VEC = Io<T>::VEC;
+fwht_kernel(const T* __restrict__ x, TO* __restrict__ out, int64_t n, float scale) {
+  constexpr int TB = Geo<L>::TB, P = Geo<L>::PASSES, VI = Io<T>::VEC;
+  constexpr int VEC = Io<TO>::VEC;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
@@ -226,19 +249,21 @@ fwht_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, float scale
 
   // pass 0: the thread's 16 consecutive coordinates
 #pragma unroll
-  for (int k = 0; k < kRegs / VEC; ++k)
-    load_run<T, VEC_IO>(x, g0 + (tid << 4) + k * VEC, n, v + k * VEC);
+  for (int k = 0; k < kRegs / VI; ++k)
+    load_run<T, VEC_IO>(x, g0 + (tid << 4) + k * VI, n, v + k * VI);
   stages<L, 0>(v);
   if constexpr (P > 1) { transpose<L, 0>(v, sm, tid); stages<L, 1>(v); }
   if constexpr (P > 2) { transpose<L, 1>(v, sm, tid); stages<L, 2>(v); }
   if constexpr (P > 3) { transpose<L, 2>(v, sm, tid); stages<L, 3>(v); }
+  if constexpr (SCALE) {
 #pragma unroll
-  for (int r = 0; r < kRegs; ++r) v[r] = __fmul_rn(v[r], scale);
+    for (int r = 0; r < kRegs; ++r) v[r] = __fmul_rn(v[r], scale);
+  }
 
   if constexpr (P == 1) {
 #pragma unroll
     for (int k = 0; k < kRegs / VEC; ++k)
-      store_run<T, VEC_IO>(out, g0 + (tid << 4) + k * VEC, n, v + k * VEC);
+      store_run<TO, VEC_IO>(out, g0 + (tid << 4) + k * VEC, n, v + k * VEC);
   } else {
     // Lane bits 0..E-1 hold index bits 0..E-1 in passes >= 1; after the
     // swap the registers hold them, and lane bits 0..E-1 index bits
@@ -250,11 +275,135 @@ fwht_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, float scale
                      | ((tid >> lo) << (lo + 4));
 #pragma unroll
     for (int k = 0; k < kRegs / VEC; ++k)
-      store_run<T, VEC_IO>(out, g0 + (base | (k << (lo + E))), n, v + k * VEC);
+      store_run<TO, VEC_IO>(out, g0 + (base | (k << (lo + E))), n, v + k * VEC);
   }
 }
 
-template <typename T, int L>
+// Tile of a further launch of a row of 2^L > 2^14: 4096 elements, 2^K rows
+// of index bits b0 .. b0 + K - 1 by C = 4096 / 2^K consecutive columns.
+constexpr int kHighTile = 4096, kHighThreads = 256;
+
+// The stages over bits 0 .. KB - 1 of the register index, lowest first:
+// each group of 2^KB registers (v[g * 2^KB + i]) holds the values of one
+// column whose index bits differ in bit j of i.
+template <int KB>
+__device__ __forceinline__ void reg_stages(float (&v)[kRegs]) {
+#pragma unroll
+  for (int j = 0; j < KB; ++j)
+#pragma unroll
+    for (int r = 0; r < kRegs; ++r) {
+      if (r & (1 << j)) continue;
+      const float a = v[r], b = v[r | (1 << j)];
+      v[r] = __fadd_rn(a, b);
+      v[r | (1 << j)] = __fsub_rn(a, b);
+    }
+}
+
+// One further launch: stages over index bits b0 .. b0 + K - 1 (b0 >= 14)
+// of f32 rows, in place; the last one (LAST) scales and writes TO to out.
+// n is a multiple of the tile.  A thread's 16 values are 16 >> K0 items
+// (columns, in steps of 256 threads) of 2^K0 rows each: first the rows of
+// bits 0 .. K0 - 1 of the tile's row index (K0 = min(K, 4)), then, through
+// shared memory, of bits 4 .. K - 1.  Not restrict: in and out may be one
+// tensor, each tile read whole before it is written.
+template <int K, typename TO, bool LAST>
+__global__ void __launch_bounds__(kHighThreads)
+fwht_high_kernel(const float* in, TO* out, int64_t n, int b0, float scale) {
+  constexpr int C = kHighTile >> K, LC = 12 - K;   // columns, their bits
+  constexpr int K0 = K < 4 ? K : 4, K1 = K - K0;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  // tile -> (column block, everything above the tile's bits)
+  const int cbits = b0 - LC;
+  const int64_t t = blockIdx.x;
+  const int64_t base = ((t >> cbits) << (b0 + K))
+                       + ((t & ((int64_t(1) << cbits) - 1)) << LC);
+  float v[kRegs];
+
+  // round 0: item i = tid + 256 j is column i % C of rows i / C << K0 | r
+  constexpr int N0 = 1 << K0;
+#pragma unroll
+  for (int j = 0; j < kRegs / N0; ++j) {
+    const int i = tid + kHighThreads * j;
+    const int c = i & (C - 1), rr = i >> LC;
+#pragma unroll
+    for (int r = 0; r < N0; ++r)
+      v[j * N0 + r] = in[base + ((int64_t)(r | (rr << K0)) << b0) + c];
+  }
+  reg_stages<K0>(v);
+
+  // round 1 (K > 4): rows r | i / C << 4 ... through shared memory
+  constexpr int N1 = 1 << K1;
+  if constexpr (K1 > 0) {
+#pragma unroll
+    for (int j = 0; j < kRegs / N0; ++j) {
+      const int i = tid + kHighThreads * j;
+      const int c = i & (C - 1), rr = i >> LC;
+#pragma unroll
+      for (int r = 0; r < N0; ++r) sm[((r | (rr << K0)) << LC) + c] = v[j * N0 + r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRegs / N1; ++j) {
+      const int i = tid + kHighThreads * j;
+      const int c = i & (C - 1), rr = i >> LC;
+#pragma unroll
+      for (int r = 0; r < N1; ++r)
+        v[j * N1 + r] = sm[((rr | (r << K0)) << LC) + c];
+    }
+    reg_stages<K1>(v);
+  }
+
+  // the store, in the layout of the last round
+  constexpr int NL = K1 > 0 ? N1 : N0, SH = K1 > 0 ? 0 : K0;
+  constexpr int RS = K1 > 0 ? K0 : 0;
+#pragma unroll
+  for (int j = 0; j < kRegs / NL; ++j) {
+    const int i = tid + kHighThreads * j;
+    const int c = i & (C - 1), rr = i >> LC;
+#pragma unroll
+    for (int r = 0; r < NL; ++r) {
+      const int row = (r << RS) | (rr << SH);
+      const int64_t at = base + ((int64_t)row << b0) + c;
+      if constexpr (LAST) {
+        const float z = __fmul_rn(v[j * NL + r], scale);
+        if constexpr (std::is_same_v<TO, float>) out[at] = z;
+        else out[at] = __float2bfloat16_rn(z);
+      } else {
+        out[at] = v[j * NL + r];
+      }
+    }
+  }
+}
+
+template <int K, typename TO, bool LAST>
+int launch_high(const float* in, void* out, int64_t n, int b0, float scale,
+                cudaStream_t stream) {
+  const size_t smem = K > 4 ? sizeof(float) * kHighTile : 0;
+  fwht_high_kernel<K, TO, LAST><<<(unsigned)(n / kHighTile), kHighThreads,
+                                  smem, stream>>>(
+      in, static_cast<TO*>(out), n, b0, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO, bool LAST>
+int launch_high_k(const float* in, void* out, int64_t n, int b0, int k,
+                  float scale, cudaStream_t stream) {
+  switch (k) {
+    case 1: return launch_high<1, TO, LAST>(in, out, n, b0, scale, stream);
+    case 2: return launch_high<2, TO, LAST>(in, out, n, b0, scale, stream);
+    case 3: return launch_high<3, TO, LAST>(in, out, n, b0, scale, stream);
+    case 4: return launch_high<4, TO, LAST>(in, out, n, b0, scale, stream);
+    case 5: return launch_high<5, TO, LAST>(in, out, n, b0, scale, stream);
+    case 6: return launch_high<6, TO, LAST>(in, out, n, b0, scale, stream);
+    case 7: return launch_high<7, TO, LAST>(in, out, n, b0, scale, stream);
+    case 8: return launch_high<8, TO, LAST>(in, out, n, b0, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int L, typename TO = T, bool SCALE = true>
 int launch_l(const void* x, void* out, int64_t rows, float scale, bool vec,
              cudaStream_t stream) {
   using G = Geo<L>;
@@ -262,8 +411,9 @@ int launch_l(const void* x, void* out, int64_t rows, float scale, bool vec,
   const int64_t blocks = (n + (int64_t(1) << G::TB) - 1) >> G::TB;
   const size_t smem = G::PASSES > 1 ? sizeof(float) << G::TB : 0;
   const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  auto kernel = vec ? fwht_kernel<T, L, true> : fwht_kernel<T, L, false>;
+  TO* op = static_cast<TO*>(out);
+  auto kernel = vec ? fwht_kernel<T, L, true, TO, SCALE>
+                    : fwht_kernel<T, L, false, TO, SCALE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -279,6 +429,8 @@ int launch(const void* x, void* out, int64_t rows, int log2d, float scale,
   // 16-byte runs need both pointers on 16-byte boundaries
   const bool vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
   switch (log2d) {
+    case 0: return launch_l<T, 0>(x, out, rows, scale, vec, stream);
+    case 1: return launch_l<T, 1>(x, out, rows, scale, vec, stream);
     case 2: return launch_l<T, 2>(x, out, rows, scale, vec, stream);
     case 3: return launch_l<T, 3>(x, out, rows, scale, vec, stream);
     case 4: return launch_l<T, 4>(x, out, rows, scale, vec, stream);
@@ -298,16 +450,50 @@ int launch(const void* x, void* out, int64_t rows, int log2d, float scale,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  Returns the CUDA error code of the launch
-// (0 = launched).  Any stale error is cleared first so that the code
-// reports this launch alone.
+// Each launcher returns the CUDA error code of its launch (0 = launched).
+// Any stale error is cleared first so that the code reports this launch
+// alone.  dtype: 0 = f32, 1 = bf16.
+
+// Rows of d = 2^log2d <= 16384, whole.  partial != 0 (log2d = 14 only):
+// the first launch of a longer row, which writes f32 to out, unscaled.
 extern "C" int fwht_launch(const void* x, void* out, int64_t rows, int log2d,
-                           float scale, int dtype, void* stream) {
+                           float scale, int dtype, int partial,
+                           void* stream) {
   cudaGetLastError();
   if (rows <= 0) return 0;
-  if (log2d < 2 || log2d > 14) return (int)cudaErrorInvalidValue;
+  if (log2d < 0 || log2d > 14 || (partial && log2d != 14))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
+  if (partial && dtype == 0)
+    return launch_l<float, 14, float, false>(x, out, rows, scale, vec, st);
+  if (partial && dtype == 1)
+    return launch_l<__nv_bfloat16, 14, float, false>(x, out, rows, scale, vec,
+                                                     st);
   if (dtype == 0) return launch<float>(x, out, rows, log2d, scale, st);
   if (dtype == 1) return launch<__nv_bfloat16>(x, out, rows, log2d, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// A further launch of rows longer than 16384: the stages of index bits
+// b0 .. b0 + k - 1 (b0 >= 14, 1 <= k <= 8) of the f32 tensor `in` of n
+// elements (rows times d), in place.  out_dtype -1: not the last launch
+// (out is in); 0 or 1: the last, which scales and writes f32 or bf16 to
+// out.
+extern "C" int fwht_pass_launch(const float* in, void* out, int64_t n, int b0,
+                                int k, float scale, int out_dtype,
+                                void* stream) {
+  cudaGetLastError();
+  if (n <= 0) return 0;
+  if (b0 < 14 || k < 1 || k > 8 || n % kHighTile
+      || (n >> (b0 + k)) << (b0 + k) != n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (out_dtype == -1)
+    return launch_high_k<float, false>(in, out, n, b0, k, scale, st);
+  if (out_dtype == 0)
+    return launch_high_k<float, true>(in, out, n, b0, k, scale, st);
+  if (out_dtype == 1)
+    return launch_high_k<__nv_bfloat16, true>(in, out, n, b0, k, scale, st);
   return (int)cudaErrorInvalidValue;
 }

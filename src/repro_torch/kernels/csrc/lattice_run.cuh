@@ -7,9 +7,13 @@
 // words pack colors in little-endian lanes, so coordinate c's color is bits
 // [c * BITS, (c + 1) * BITS) of the payload, and a quad's colors are one
 // aligned unit of the payload that the lane reads or writes whole, with no
-// shuffles.  Lane l of a warp takes quad l of each 128-coordinate step, so
-// every access of the warp is one contiguous, coalesced run: 512 bytes of
-// each stream, 32 * BITS / 2 bytes of words.
+// shuffles.  At 1 bit a quad is half a byte: a lane reads the word that
+// holds it (the 8 lanes of a word read one address) and shifts, and the
+// encode ORs 8 lanes' nibbles into their word by shuffles before one lane
+// of the 8 stores it (store_bits then takes the whole word).  Lane l of a
+// warp takes quad l of each 128-coordinate step, so every access of the
+// warp is one contiguous, coalesced run: 512 bytes of each stream,
+// 32 * BITS / 2 bytes of words.
 //
 // A warp walks a group of kIters steps (kGroup = 512 coordinates), all of
 // the group's loads issued before the arithmetic on them: 16 coordinates
@@ -38,9 +42,10 @@ constexpr int kGroup = kIters * 32 * 4;   // coordinates of a group
 constexpr int kLogGroup = 9;
 // blocks an SM the launch bounds ask for: 3 (<= 80 registers) for the
 // 16-byte body, 2 (<= 128) for the 4-byte one, whose scalar loads hold
-// more addresses, and for 16-bit colors, whose quads are 64-bit units
+// more addresses, for 16-bit colors, whose quads are 64-bit units, and for
+// 1-bit colors, whose encode spilled 16 bytes at 80 (the shuffled word)
 template <int BITS, int VEC>
-constexpr int kMinBlocks = VEC == 4 && BITS < 16 ? 3 : 2;
+constexpr int kMinBlocks = VEC == 4 && BITS > 1 && BITS < 16 ? 3 : 2;
 static_assert(1 << kLogGroup == kGroup, "kLogGroup");
 
 // The packed bits of one quad (4 * BITS of them).
@@ -111,7 +116,9 @@ __device__ __forceinline__ Bits<BITS> load_bits(
   } else {
     constexpr int PER_WORD = 8 / BITS;  // quads a word
     if (!FULL && quad / PER_WORD >= nw) return 0u;
-    if constexpr (BITS == 2)
+    if constexpr (BITS == 1)
+      return __ldg(words + (quad >> 3)) >> ((int)(quad & 7) * 4);
+    else if constexpr (BITS == 2)
       return __ldg(reinterpret_cast<const uint8_t*>(words) + quad);
     else if constexpr (BITS == 4)
       return __ldg(reinterpret_cast<const uint16_t*>(words) + quad);
@@ -121,7 +128,8 @@ __device__ __forceinline__ Bits<BITS> load_bits(
 }
 
 // Writes the packed bits of quad `quad`; in the partial group, not a word
-// at or past nw.
+// at or past nw.  At 1 bit, `b` is the whole word of quads quad..quad + 7
+// (quad a multiple of 8), gathered by the caller.
 template <int BITS, int VEC, bool FULL>
 __device__ __forceinline__ void store_bits(uint32_t* __restrict__ words,
                                            int64_t quad, int64_t nw,
@@ -138,13 +146,22 @@ __device__ __forceinline__ void store_bits(uint32_t* __restrict__ words,
   } else {
     constexpr int PER_WORD = 8 / BITS;
     if (!FULL && quad / PER_WORD >= nw) return;
-    if constexpr (BITS == 2)
+    if constexpr (BITS == 1)
+      words[quad >> 3] = b;
+    else if constexpr (BITS == 2)
       reinterpret_cast<uint8_t*>(words)[quad] = (uint8_t)b;
     else if constexpr (BITS == 4)
       reinterpret_cast<uint16_t*>(words)[quad] = (uint16_t)b;
     else
       words[quad] = b;
   }
+}
+
+// v mod q in [0, q), as jnp.mod of an int32 takes it (floor division; C's
+// % truncates toward zero); q >= 1.
+__device__ __forceinline__ int floor_mod(int v, int q) {
+  const int r = v % q;
+  return r < 0 ? r + q : r;
 }
 
 // True when every pointer (null counts) lies on a 16-byte boundary.

@@ -7,8 +7,11 @@ bf16 and f16 go to ``csrc/flash_attention_wgmma.cu`` (wgmma on the tensor
 cores, K/V by TMA, P split into two terms of the input type), f32 to
 ``csrc/flash_attention.cu`` (f32 FMAs on the CUDA cores).  Both are built
 for head dims 64, 128, 192 and 256; any other D up to 256 is padded with
-zero columns to the next of those (:func:`pad_head_dim`).  The plain torch
-version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
+zero columns to the next of those (:func:`pad_head_dim`).  A head dim past
+256, in any of the three types, goes to ``csrc/flash_attention_wide.cu``
+(f32 FMAs on the CUDA cores, the output columns split over the grid),
+unpadded.  The plain torch version is
+:func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations
 
@@ -32,10 +35,23 @@ _KERNELS = {torch.float32: ("flash_attention", "flash_attention_launch"),
                              "flash_attention_wgmma_launch"),
             torch.float16: ("flash_attention_wgmma",
                             "flash_attention_wgmma_f16_launch")}
+# dtype -> the wide kernel's C launcher (head dims past MAX_HEAD_DIM)
+_WIDE = {torch.float32: ("flash_attention_wide",
+                         "flash_attention_wide_launch"),
+         torch.bfloat16: ("flash_attention_wide",
+                          "flash_attention_wide_bf16_launch"),
+         torch.float16: ("flash_attention_wide",
+                         "flash_attention_wide_f16_launch")}
 
 
-def _launcher(dtype: torch.dtype):
-    lib, name = _KERNELS[dtype]
+def kernel_of(dtype: torch.dtype, d: int) -> "tuple[str, str]":
+    """(library, C launcher) that attention of ``dtype`` at head dim ``d``
+    launches."""
+    return (_KERNELS if d <= MAX_HEAD_DIM else _WIDE)[dtype]
+
+
+def _launcher(dtype: torch.dtype, d: int):
+    lib, name = kernel_of(dtype, d)
     fn = getattr(_build.load(lib), name)
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
     fn.restype = _I
@@ -43,7 +59,10 @@ def _launcher(dtype: torch.dtype):
 
 
 def padded_head_dim(d: int) -> int:
-    """The built head dim that a head dim of ``d`` (1 to 256) runs at."""
+    """The built head dim that a head dim of ``d`` (1 to 256) runs at
+    (``d`` itself past 256: the wide kernel takes any)."""
+    if d > MAX_HEAD_DIM:
+        return d
     return next(w for w in HEAD_DIMS if w >= d)
 
 
@@ -77,18 +96,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``bq`` and ``bk`` are kept for the reference kernel's signature alone:
     the kernels work in tiles of 64 or 128 queries and 64 keys and mask a
-    ragged edge, so BH, Sq and Sk may be any sizes of at least 1.  D is at
-    most 256; a D the kernels are not built for is padded with zero columns
-    (:func:`pad_head_dim`) and the output sliced back.  q, k and v share
-    one dtype (f32, bf16 or f16), are contiguous and start on 16-byte
-    boundaries."""
+    ragged edge, so BH, Sq and Sk may be any sizes of at least 1.  A D up
+    to 256 that the kernels are not built for is padded with zero columns
+    (:func:`pad_head_dim`) and the output sliced back; a D past 256 takes
+    the wide kernel as it is.  q, k and v share one dtype (f32, bf16 or
+    f16), are contiguous and start on 16-byte boundaries."""
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, Sq, D), got shape {tuple(q.shape)}")
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"the flash_attention kernel takes D <= "
-                         f"{MAX_HEAD_DIM}, got {d}")
     if q.dtype not in _KERNELS:
         raise ValueError(f"the flash_attention kernel takes f32, bf16 or "
                          f"f16, got {q.dtype}")
@@ -109,9 +125,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = float(np.float32(float(np.float32(1.0 / np.sqrt(d)))
                              * math.log2(math.e)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher(q.dtype)(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                             out.data_ptr(), bh, sq, sk, qp.shape[-1],
-                             int(causal), scale, stream)
-    _build.check(err, _KERNELS[q.dtype][0])
+    err = _launcher(q.dtype, d)(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                out.data_ptr(), bh, sq, sk, qp.shape[-1],
+                                int(causal), scale, stream)
+    _build.check(err, kernel_of(q.dtype, d)[0])
     _build.LAUNCHES["flash_attention"] += 1
     return out if out.shape[-1] == d else out[..., :d].contiguous()

@@ -1,4 +1,6 @@
-"""Wrappers of the lattice-decode CUDA kernels (``csrc/lattice_decode.cu``).
+"""Wrappers of the lattice-decode CUDA kernels (``csrc/lattice_decode.cuh``:
+``lattice_decode.cu`` for q a power of two, ``lattice_decode_any.cu`` for q
+not one; any q in [1, 65536] and any n >= 1).
 
 * :func:`lattice_decode_cuda`, counterpart of
   ``repro.kernels.lattice_decode.lattice_decode_pallas``: one payload
@@ -52,14 +54,22 @@ def lattice_decode_fake(words: torch.Tensor, anchor: torch.Tensor,
     return out
 
 
-@functools.cache
-def _single_launcher():
-    """The single decode's C launcher, loaded and typed once."""
-    fn = _build.load("lattice_decode").lattice_decode_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _I64, _I, _I,
-                   _P]
-    fn.restype = _I
+def _typed(name: str, q_pow2: bool, argtypes: list):
+    """The C launcher ``lattice_<name>[_any]_launch`` of the decode library
+    for q a power of two (``q_pow2``) or not, typed."""
+    lib = _build.lattice_library("lattice_decode", q_pow2)
+    fn = getattr(_build.load(lib),
+                 f"lattice_{name}{lib[len('lattice_decode'):]}_launch")
+    fn.argtypes, fn.restype = argtypes, _I
     return fn
+
+
+@functools.cache
+def _single_launcher(q_pow2: bool = True):
+    """The single decode's C launcher for q a power of two (or, with
+    ``q_pow2`` false, not one), loaded and typed once each."""
+    return _typed("decode", q_pow2, [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F,
+                                     _F, _I64, _I, _I, _P])
 
 
 def lattice_decode_cuda(words: torch.Tensor, anchor: torch.Tensor,
@@ -101,7 +111,7 @@ def lattice_decode_cuda(words: torch.Tensor, anchor: torch.Tensor,
     out = torch.empty(n, device=dev,
                       dtype=torch.int32 if coords else torch.float32)
     stream = _build.current_stream(dev)
-    err = _single_launcher()(
+    err = _single_launcher(_build.pow2(q))(
         words.data_ptr(), anchor.data_ptr(), u.data_ptr(),
         ref.data_ptr() if ref is not None else None, sides.data_ptr(), shift,
         out.data_ptr(), int(coords), int(avg), cnt, recip, n, q, bits,
@@ -112,13 +122,12 @@ def lattice_decode_cuda(words: torch.Tensor, anchor: torch.Tensor,
 
 
 @functools.cache
-def _launcher():
-    """The batched decode's C launcher, loaded and typed once."""
-    fn = _build.load("lattice_decode").lattice_decode_batched_launch
-    fn.argtypes = [_P, _I64, _P, _P, _P, _P, _I64, _I, _P, _I, _I64, _I64,
-                   _I, _I, _P]
-    fn.restype = _I
-    return fn
+def _launcher(q_pow2: bool = True):
+    """The batched decode's C launcher for q a power of two (or, with
+    ``q_pow2`` false, not one), loaded and typed once each."""
+    return _typed("decode_batched", q_pow2, [_P, _I64, _P, _P, _P, _P, _I64,
+                                             _I, _P, _I, _I64, _I64, _I, _I,
+                                             _P])
 
 
 def lattice_decode_batched_cuda(words: torch.Tensor, anchor: torch.Tensor,
@@ -155,7 +164,7 @@ def lattice_decode_batched_cuda(words: torch.Tensor, anchor: torch.Tensor,
     out = torch.empty((senders, n), device=dev,
                       dtype=torch.int32 if coords else torch.float32)
     stream = _build.current_stream(dev)
-    err = _launcher()(
+    err = _launcher(_build.pow2(q))(
         words.data_ptr(), words.shape[1], anchor.data_ptr(), u.data_ptr(),
         ref.data_ptr() if ref is not None else None, sides.data_ptr(), s_row,
         shift, out.data_ptr(), int(coords), senders, n, q, bits, stream)

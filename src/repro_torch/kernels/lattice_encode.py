@@ -1,9 +1,12 @@
-"""Wrapper of the fused lattice-encode CUDA kernel (``csrc/lattice_encode.cu``).
+"""Wrapper of the fused lattice-encode CUDA kernel
+(``csrc/lattice_encode.cuh``: ``lattice_encode.cu`` for q a power of two,
+``lattice_encode_any.cu`` for q not one).
 
 Counterpart of ``repro.kernels.lattice_encode.lattice_encode_pallas``: one
 pass over x computes ``k = round((x - anchor)/s - u)``, the mod-q colors
-and their bit-packed words (plus the int32 coordinates when asked).  The
-plain torch version is :func:`repro_torch.kernels.ref.lattice_encode_ref`.
+and their bit-packed words (plus the int32 coordinates when asked), for
+any q in [1, 65536] and any n >= 1.  The plain torch version is
+:func:`repro_torch.kernels.ref.lattice_encode_ref`.
 """
 from __future__ import annotations
 
@@ -38,9 +41,11 @@ def lattice_encode_fake(x: torch.Tensor, u: torch.Tensor, s,
 
 
 @functools.cache
-def _launcher():
-    """The C launcher, loaded and typed once."""
-    fn = _build.load("lattice_encode").lattice_encode_launch
+def _launcher(q_pow2: bool = True):
+    """The C launcher for q a power of two (or, with ``q_pow2`` false, not
+    one), loaded and typed once each."""
+    lib = _build.lattice_library("lattice_encode", q_pow2)
+    fn = getattr(_build.load(lib), f"{lib}_launch")
     fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I64, _I, _I, _P]
     fn.restype = _I
     return fn
@@ -72,7 +77,7 @@ def lattice_encode_cuda(x: torch.Tensor, u: torch.Tensor, s,
     coords = (torch.empty(n, dtype=torch.int32, device=dev)
               if return_coords else None)
     stream = _build.current_stream(dev)
-    err = _launcher()(
+    err = _launcher(_build.pow2(q))(
         x.data_ptr(), anchor.data_ptr() if anchor is not None else None,
         u.data_ptr(), sides.data_ptr(), shift, words.data_ptr(),
         coords.data_ptr() if coords is not None else None, n, q, bits,

@@ -10,13 +10,17 @@ kernel's shapes and records the call, so that a trace counts the kernel
 as one op and not the plain version's ops.  No real tensor takes that
 branch.
 
-Shape rules: the reference's.  The CUDA kernels take q a power of two
-with 2, 4, 8 or 16 bits per color, n >= 32, and FWHT rows of d a power of
-two in [4, 16384]; where the reference sends any other shape to its plain
-version, a CUDA tensor of that shape raises here.  Attention takes more
-than the reference's kernel does: any BH, Sq, Sk >= 1 (the reference
-sends Sq < 16, and Sq or Sk not a multiple of min(256, S), to its plain
-version) and any head dim up to 256, in f32, bf16 or f16; D > 256 raises.
+Shape rules: every shape the reference's ops computes goes to a kernel.
+The lattice kernels take any q in [1, 65536] (1 to 16 bits per color, q a
+power of two or not) and any n >= 1; the FWHT takes rows of any power of
+two, f32 or bf16 (rows past 16,384 in several launches); attention takes
+any BH, Sq, Sk and D >= 1, in f32, bf16 or f16.  The reference's kernels
+take less (q a power of two with 2 to 16 bits, n >= 32, FWHT rows in
+[4, 16384], attention with Sq >= 16 and Sq, Sk multiples of min(256, S))
+and send the rest to their plain versions, which compute the same
+functions.  A CUDA tensor raises only where the reference raises: q
+outside [1, 65536], n < 1, an FWHT row that is not a power of two, and a
+dtype no kernel takes.
 
 ``DISPATCH_COUNTS`` keeps the reference's semantics: one count per
 decode call (single or batched), whichever device ran it, so a drain can
@@ -218,9 +222,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The reference takes blocks ``bq = min(256, Sq)``, ``bk = min(256, Sk)``
     and sends a shape its kernel does not take (Sq or Sk not a multiple
     of its block, Sq < 16) to its plain version, which computes the same
-    function.  Here a CUDA tensor of any BH, Sq, Sk >= 1, any D <= 256 and
-    f32, bf16 or f16 goes to the kernel, which masks a ragged edge and
-    pads D to a built width; D > 256 raises."""
+    function.  Here a CUDA tensor of any BH, Sq, Sk >= 1, any D >= 1 and
+    f32, bf16 or f16 goes to a kernel, which masks a ragged edge; D up to
+    256 is padded to a built width, D past it takes the wide kernel."""
     if q.is_meta:
         return flash_attention_fake(q, k, v)
     if _on_cpu(q):

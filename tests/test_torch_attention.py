@@ -171,9 +171,10 @@ def test_padded_head_dim_is_the_same_function(d, causal):
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     """The CUDA wrapper refuses bad arguments before any launch (these
-    checks run the same with or without a card): D past 256, a dtype
-    other than f32, bf16 and f16, an empty shape, mismatched shapes or
-    dtypes, a misaligned start."""
+    checks run the same with or without a card): a dtype other than f32,
+    bf16 and f16 (at a head dim past 256 too), an empty shape, mismatched
+    shapes or dtypes, a misaligned start.  A head dim past 256 is taken
+    (by the wide kernel)."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     def qkv(sq, sk, d, dtype=torch.float32):
@@ -181,12 +182,14 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
                 torch.zeros(2, sk, d, dtype=dtype),
                 torch.zeros(2, sk, d, dtype=dtype))
 
-    with pytest.raises(ValueError, match="D <= 256"):
-        flash_attention_cuda(*qkv(256, 256, 320), causal=True, bq=256, bk=256)
-    # 192 passes the head-dim check and stops at the next one
-    q, k, v = qkv(256, 256, 192)
-    with pytest.raises(ValueError, match="shape"):
-        flash_attention_cuda(q, k, v[:, :128].contiguous(), causal=False,
+    # 320 and 192 pass the dtype check and stop at the shape check
+    for d in (320, 192):
+        q, k, v = qkv(256, 256, d)
+        with pytest.raises(ValueError, match="shape"):
+            flash_attention_cuda(q, k, v[:, :128].contiguous(), causal=False,
+                                 bq=256, bk=256)
+    with pytest.raises(ValueError, match="f32, bf16 or f16"):
+        flash_attention_cuda(*qkv(256, 256, 320, torch.float64), causal=True,
                              bq=256, bk=256)
     with pytest.raises(ValueError, match="f32, bf16 or f16"):
         flash_attention_cuda(*qkv(256, 256, 64, torch.float64), causal=True,

@@ -69,6 +69,10 @@ CASES = (
     # q = 2 with a tiny bound: decode failures are detected (the 1.5 y
     # distance surrogate fires only for q = 2)
     + [_case(fn, True, q=2, y="y_tiny", tag="-fails") for fn in FNS]
+    # q not a power of two (2- and 4-bit colors the centered mod folds by
+    # a remainder): the star and the butterfly
+    + [_case(fn, True, q=q, tag=f"-q{q}") for fn in (STAR, BFLY)
+       for q in (3, 12)]
     # the server-parity star: the round's key and uniform y0
     + [_case(STAR, True, y="y_server",
              key=TRd.round_key(SERVER_SPEC), tag="-server")])

@@ -32,6 +32,11 @@ def _t(a, device="cpu"):
     return torch.from_numpy(np.array(a)).to(device)
 
 
+# every kind of color space: 1 bit (q = 1, 2), powers of two, and q not a
+# power of two at 2, 4, 8 and 16 bits
+CARD_QS = (1, 2, 3, 4, 12, 16, 256, 1000, 65535, 65536)
+
+
 def _inputs(n, bucket, seed):
     rng = np.random.RandomState(seed)
     x = (rng.randn(n) * 2).astype(np.float32)
@@ -41,7 +46,7 @@ def _inputs(n, bucket, seed):
     return x, u, a, sides
 
 
-@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+@pytest.mark.parametrize("q", CARD_QS)
 @pytest.mark.parametrize("kind", ["scalar", "coord", "bucket"])
 def test_encode_matches_plain(cuda, q, kind):
     n, bucket = 5003, 256
@@ -64,7 +69,7 @@ def test_encode_matches_plain(cuda, q, kind):
         np.testing.assert_array_equal(w.cpu().numpy(), want_w.numpy())
 
 
-@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+@pytest.mark.parametrize("q", CARD_QS)
 @pytest.mark.parametrize("mode", ["coords", "point"])
 def test_decode_batched_matches_plain(cuda, q, mode):
     S, n, bucket = 7, 5003, 256
@@ -90,7 +95,7 @@ def test_decode_batched_matches_plain(cuda, q, mode):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+@pytest.mark.parametrize("q", CARD_QS)
 def test_decode_single_matches_plain(cuda, q):
     """Every mode of the single-payload decode at n = 2^20 with random
     per-bucket sides: the kernel rounds the same steps as the plain
@@ -122,10 +127,11 @@ def test_decode_single_matches_plain(cuda, q):
                                           err_msg=f"{mode} {avg}")
 
 
-# n of the run-layout tests: below one run, one past it, runs of 4 words
-# (4 * 32/bits coordinates) less or more one, as few as a block holds and
-# more than the persistent grid covers in one stride, and 5003
-RUN_N = (32, 33, (5, -1), (5, 1), (131075, -1), (131075, 1), 5003)
+# n of the run-layout tests: 1 and 7 (inside one lane's quads), below one
+# run, one past it, runs of 4 words (4 * 32/bits coordinates) less or more
+# one, as few as a block holds and more than the persistent grid covers in
+# one stride, and 5003
+RUN_N = (1, 7, 32, 33, (5, -1), (5, 1), (131075, -1), (131075, 1), 5003)
 
 
 def _run_n(q, spec):
@@ -160,7 +166,7 @@ def _on_card(a, cuda, misaligned):
     return v
 
 
-@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+@pytest.mark.parametrize("q", CARD_QS)
 @pytest.mark.parametrize("n_spec", RUN_N, ids=str)
 def test_encode_runs_match_plain(cuda, q, n_spec):
     """The encode against its plain version at n around whole runs, for
@@ -193,7 +199,7 @@ def test_encode_runs_match_plain(cuda, q, n_spec):
                         assert torch.equal(k, want_k), what
 
 
-@pytest.mark.parametrize("q", [4, 16, 256, 65536])
+@pytest.mark.parametrize("q", CARD_QS)
 @pytest.mark.parametrize("n_spec", RUN_N, ids=str)
 def test_decode_single_runs_match_plain(cuda, q, n_spec):
     """The single decode against its plain version at n around whole runs,
@@ -231,17 +237,48 @@ def test_decode_single_runs_match_plain(cuda, q, n_spec):
 
 
 def test_decode_single_raises_outside_the_rules(cuda):
+    """Only what the reference refuses (q past 16 bits, no coordinates)
+    and what no kernel takes raises on the card; 1-bit colors launch."""
     x = torch.zeros(64, device=cuda)
     w = torch.zeros(8, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="power of two"):
-        TK.lattice_decode(w, x, x, 0.5, q=2)              # 1-bit colors
-    with pytest.raises(ValueError, match="n >= 32"):
-        TK.lattice_decode(w, x[:31], x[:31], 0.5, q=16)
+    with pytest.raises(ValueError, match="q must be in"):
+        TK.lattice_decode(w, x, x, 0.5, q=65537)
+    with pytest.raises(ValueError, match="n >= 1"):
+        TK.lattice_decode(w, x[:0], x[:0], 0.5, q=16)
     with pytest.raises(ValueError, match="is on"):
         TK.lattice_decode(w.cpu(), x, x, 0.5, q=16)
     with pytest.raises(ValueError, match="per-bucket|do not fit|shape"):
         TK.lattice_decode(w, x, x, torch.ones(3, device=cuda), q=16,
                           bucket=16)
+    before = _build.LAUNCHES["lattice_decode"]
+    TK.lattice_decode(w[:2], x, x, 0.5, q=2)            # 1-bit colors
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lattice_decode"] == before + 1
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_decode_field_holding_three_at_q3(cuda, batched):
+    """A 2-bit field that holds 3 at q = 3 (a corrupted payload): the
+    kernels mask by the field's width, as the plain version unpacks, and
+    fold 3 as 0; every word 0xFFFFFFFF, against the plain version."""
+    n, q = 5003, 3
+    _, u, a, sides = _inputs(n, 256, 3)
+    words = torch.full((2, TL.packed_len(n, 2)), -1, dtype=torch.int32)
+    args = (_t(a), _t(u), _t(sides))
+    if batched:
+        want = TRef.lattice_decode_batched_ref(words, *args, q=q, bits=2,
+                                               n=n, bucket=256)
+        got = TK.lattice_decode_batched(words.to(cuda),
+                                        *(t.to(cuda) for t in args), q=q,
+                                        bucket=256)
+    else:
+        want = TRef.lattice_decode_ref(words[0], *args, q=q, bits=2, n=n,
+                                       mode="coords", bucket=256)
+        got = TK.lattice_decode(words[0].to(cuda),
+                                *(t.to(cuda) for t in args), q=q,
+                                mode="coords", bucket=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 def _bits(t):
@@ -286,6 +323,27 @@ def test_fwht_misaligned_view(cuda, dtype):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["fwht"] == before + 1
     assert torch.equal(_bits(got), _bits(TRef.fwht_ref(x.cpu())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,rows", [(1, 301), (2, 301), (1 << 15, 5),
+                                    (1 << 16, 3), (1 << 20, 2), (1 << 23, 1)])
+def test_fwht_short_and_long_rows_match_plain(cuda, d, rows, dtype):
+    """Rows of 1 and 2 (one launch, no stage or one) and rows past 16,384
+    (the tile kernel over the low 14 index bits, then one launch per group
+    of up to 8 of the rest: 2, 2, 2 and 3 launches), bitwise against the
+    plain version on the card."""
+    from repro_torch.kernels.fwht import fwht_passes
+
+    g = torch.Generator(device=cuda).manual_seed(d + rows)
+    x = torch.randn((rows, d), generator=g, device=cuda).to(dtype)
+    want = TRef.fwht_ref(x)
+    before = _build.LAUNCHES["fwht"]
+    got = TK.fwht(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fwht"] == before + 1 + len(fwht_passes(d))
+    assert got.dtype == dtype and tuple(got.shape) == (rows, d)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("anchored", [False, True])
@@ -435,17 +493,43 @@ def test_flash_attention_bh_past_grid_y(cuda, dtype):
                                atol=atol)
 
 
-def test_flash_attention_raises_outside_the_rules(cuda):
-    """A head dim past 256 and a dtype the kernels are not built for raise
-    on the card; nothing launches."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [257, 320, 512, 1000])
+@pytest.mark.parametrize("sq,sk,causal", [(256, 256, True), (300, 300, False),
+                                          (8, 256, True), (80, 200, False)])
+def test_flash_attention_wide_head_dims_match_plain(cuda, dtype, d, sq, sk,
+                                                    causal):
+    """Head dims past 256 (the wide kernel: P and every sum in f32, the
+    output columns split over the grid, a ragged last slice at 257, 320
+    and 1000) against the plain version, at the limits of the narrow
+    kernels' tests; one launch."""
+    q, k, v = (a.to(dtype) for a in _qkv(3, sq, sk, d, seed=d + sq))
+    want = TRef.flash_attention_ref(q, k, v, causal=causal)
     before = _build.LAUNCHES["flash_attention"]
-    q, k, v = (a.to(cuda) for a in _qkv(2, 256, 256, 320, seed=0))
-    with pytest.raises(ValueError, match="D <= 256"):
-        TK.flash_attention(q, k, v)
-    q, k, v = (a.to(cuda).double() for a in _qkv(2, 256, 256, 64, seed=0))
-    with pytest.raises(ValueError, match="f32, bf16 or f16"):
-        TK.flash_attention(q, k, v)
+    got = TK.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+    rtol, atol = _FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_raises_outside_the_rules(cuda):
+    """A dtype no kernel is built for raises on the card, at a head dim
+    past 256 too; nothing launches.  D 320 launches the wide kernel."""
+    before = _build.LAUNCHES["flash_attention"]
+    for d in (64, 320):
+        q, k, v = (a.to(cuda).double() for a in _qkv(2, 256, 256, d, seed=0))
+        with pytest.raises(ValueError, match="f32, bf16 or f16"):
+            TK.flash_attention(q, k, v)
     assert _build.LAUNCHES["flash_attention"] == before
+    q, k, v = (a.to(cuda) for a in _qkv(2, 256, 256, 320, seed=0))
+    TK.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
 
 
 def test_dme_on_card_bitwise_equals_cpu(cuda):

@@ -30,6 +30,8 @@
   ``DRYRUN_SAVE_OPS`` the op log saved (gzip), and ``reanalyze``
   reproduces the record's ``traffic_bytes`` exactly from it.
 * No module of the dry run imports ``jax``, ``repro`` or ``zstandard``.
+* The kernels' shape-only implementations take every shape the kernels
+  take, and the FWHT's records one call a launch.
 """
 import json
 import os
@@ -39,8 +41,10 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import lattice as TL
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import reanalyze as RA
 
@@ -188,3 +192,47 @@ def test_dryrun_modules_import_no_jax_no_reference_no_zstandard():
         for bad in ("import jax", "from jax", "import repro.", "from repro.",
                     "from repro import", "zstandard"):
             assert bad not in text, (name, bad)
+
+
+@pytest.mark.parametrize("d,dtype,launches", [
+    (4096, torch.float32, 1), (2, torch.bfloat16, 1),
+    (1 << 16, torch.float32, 2), (1 << 20, torch.bfloat16, 2),
+    (1 << 23, torch.float32, 3)])
+def test_fake_kernels_take_the_new_shapes(d, dtype, launches):
+    """The shape-only implementations take every shape the kernels take:
+    the FWHT at rows of any power of two records as many launches as the
+    card makes (1 + one per further pass past 16,384, ``fwht_passes``),
+    each with the tensors it reads and writes (f32 between launches); the
+    lattice fakes take 1-bit colors, q not a power of two and n < 32."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.fwht import fwht_passes
+
+    seen = []
+    _build.reset_launch_counts()
+    _build.FAKE_OBSERVERS.append(lambda k, i, o: seen.append((k, i, o)))
+    try:
+        x = torch.empty(3, d, dtype=dtype, device="meta")
+        y = ops.fwht(x)
+        assert y.shape == x.shape and y.dtype == dtype and y.is_meta
+        assert _build.FAKE_LAUNCHES["fwht"] == launches
+        assert launches == 1 + len(fwht_passes(d))
+        assert [o[0].dtype for _, _, o in seen] == (
+            [dtype] if launches == 1
+            else [torch.float32] * (launches - 1) + [dtype])
+        for q, n in ((2, 7), (3, 31), (12, 4097), (65535, 1)):
+            xs = torch.empty(n, device="meta")
+            w, k = ops.lattice_encode(xs, xs, 0.5, q=q, return_coords=True)
+            assert w.shape == (TL.packed_len(n, TL.bits_for_q(q)),)
+            assert k.shape == (n,)
+            z = ops.lattice_decode(w, xs, xs, 0.5, q=q)
+            assert z.shape == (n,) and z.dtype == torch.float32
+            kb = ops.lattice_decode_batched(w.expand(4, -1), xs, xs, 0.5,
+                                            q=q)
+            assert kb.shape == (4, n) and kb.dtype == torch.int32
+        assert _build.FAKE_LAUNCHES["lattice_encode"] == 4
+        assert _build.FAKE_LAUNCHES["lattice_decode"] == 4
+        assert _build.FAKE_LAUNCHES["lattice_decode_batched"] == 4
+        assert sum(_build.LAUNCHES.values()) == 0
+    finally:
+        _build.FAKE_OBSERVERS.pop()
+        _build.reset_launch_counts()

@@ -158,35 +158,43 @@ def test_side_layout_rejects_mismatched_shapes():
 
 def test_kernel_wrappers_reject_what_no_kernel_takes():
     """The CUDA wrappers refuse bad arguments before any launch (these
-    checks run the same with or without a card)."""
+    checks run the same with or without a card): only what the reference
+    refuses too (q outside [1, 65536], no coordinates, an FWHT row that is
+    not a power of two) and what no kernel takes (a dtype, a shape that
+    does not fit)."""
     from repro_torch.kernels.fwht import fwht_cuda
     from repro_torch.kernels.lattice_decode import lattice_decode_batched_cuda
     from repro_torch.kernels.lattice_encode import lattice_encode_cuda
 
     x = torch.zeros(64)
-    with pytest.raises(ValueError, match="power of two"):
-        lattice_encode_cuda(x, x, 0.5, q=12)
-    with pytest.raises(ValueError, match="power of two"):
-        lattice_decode_batched_cuda(torch.zeros((2, 8), dtype=torch.int32),
-                                    x, x, 0.5, q=12)
+    for q in (65537, 0):
+        with pytest.raises(ValueError, match="q must be in"):
+            lattice_encode_cuda(x, x, 0.5, q=q)
+        with pytest.raises(ValueError, match="q must be in"):
+            lattice_decode_batched_cuda(torch.zeros((2, 8),
+                                                    dtype=torch.int32),
+                                        x, x, 0.5, q=q)
     with pytest.raises(ValueError, match="cannot hold"):
         lattice_decode_batched_cuda(torch.zeros((2, 7), dtype=torch.int32),
                                     x, x, 0.5, q=16)
+    with pytest.raises(ValueError, match="cannot hold"):     # 1-bit colors
+        lattice_decode_batched_cuda(torch.zeros((2, 1), dtype=torch.int32),
+                                    x, x, 0.5, q=2)
     with pytest.raises(ValueError, match="mode"):
         lattice_decode_batched_cuda(torch.zeros((2, 8), dtype=torch.int32),
                                     x, x, 0.5, q=16, mode="points")
-    with pytest.raises(ValueError, match="power of two"):
-        lattice_encode_cuda(x, x, 0.5, q=2)           # 1-bit colors
-    with pytest.raises(ValueError, match="n >= 32"):
-        lattice_encode_cuda(x[:31], x[:31], 0.5, q=16)
-    with pytest.raises(ValueError, match="n >= 32"):
+    with pytest.raises(ValueError, match="n >= 1"):
+        lattice_encode_cuda(x[:0], x[:0], 0.5, q=12)
+    with pytest.raises(ValueError, match="n >= 1"):
         lattice_decode_batched_cuda(torch.zeros((2, 4), dtype=torch.int32),
-                                    x[:31], x[:31], 0.5, q=16)
-    for d in (12, 2, 32768):
+                                    x[:0], x[:0], 0.5, q=3)
+    for d in (12, 3, 32767):
         with pytest.raises(ValueError, match="power of two"):
             fwht_cuda(torch.zeros((2, d)))
     with pytest.raises(ValueError, match="f32 or bf16"):
         fwht_cuda(torch.zeros((2, 16), dtype=torch.float64))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fwht_cuda(torch.zeros((2, 65536), dtype=torch.float64))
 
 
 @pytest.mark.parametrize("q", [4, 16, 256])
@@ -245,12 +253,14 @@ def test_lattice_decode_single_rejects_what_no_kernel_takes():
 
     x = torch.zeros(64)
     w = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(ValueError, match="power of two"):
-        lattice_decode_cuda(w, x, x, 0.5, q=12)
-    with pytest.raises(ValueError, match="n >= 32"):
-        lattice_decode_cuda(w, x[:31], x[:31], 0.5, q=16)
+    with pytest.raises(ValueError, match="q must be in"):
+        lattice_decode_cuda(w, x, x, 0.5, q=65537)
+    with pytest.raises(ValueError, match="n >= 1"):
+        lattice_decode_cuda(w, x[:0], x[:0], 0.5, q=16)
     with pytest.raises(ValueError, match="cannot hold"):
         lattice_decode_cuda(w[:7], x, x, 0.5, q=16)
+    with pytest.raises(ValueError, match="cannot hold"):     # q = 12: 4 bits
+        lattice_decode_cuda(w[:7], x, x, 0.5, q=12)
     with pytest.raises(ValueError, match="one payload"):
         lattice_decode_cuda(torch.zeros((2, 8), dtype=torch.int32), x, x,
                             0.5, q=16)
