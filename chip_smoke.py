@@ -25,13 +25,15 @@ nothing of the JAX package.  The script
    main instances move their streams by 128-bit loads and stores and no
    instance of the four lattice libraries spilled, and unless every
    instance of the attention kernels (f32 at head dims 64, 128, 192 and
-   256; the wgmma kernel in bf16 and f16 at each; the wide kernel in each
-   type) spilled nothing and every wgmma instance shows HGMMA and
-   UTMALDG.  Then the shapes the reference's kernels do not take
-   (``shape_kernel_checks``), each bitwise against its plain version at
-   full width and timed: the encode, the single decode and the batched
-   decode (16 senders) at q = 2 (1-bit colors), 3 and 12 (not powers of
-   two), the encode and the single decode at n = 31, and the FWHT over
+   256; the wgmma kernel in bf16 and f16 at each; the wide wgmma kernel in
+   bf16 and f16 at 384 and 512; the wide f32 kernel in f32 at 384 and 512
+   and in each type past 512) spilled nothing, every instance of the two
+   wgmma kernels shows HGMMA and UTMALDG, and every instance of the wide
+   f32 kernel HMMA and UTMALDG.  Then the shapes the reference's kernels
+   do not take (``shape_kernel_checks``), each bitwise against its plain
+   version at full width and timed: the encode, the single decode and the
+   batched decode (16 senders) at q = 2 (1-bit colors), 3 and 12 (not
+   powers of two), the encode and the single decode at n = 31, and the FWHT over
    (4,239, 65,536), (264, 1,048,576) and (138,922,752, 2), f32 and bf16
    (rows past 16,384 in two launches);
 3. runs round A: an unrotated, unanchored round of 16 clients over a
@@ -159,11 +161,11 @@ nothing of the JAX package.  The script
    ``serve_glm4_tp4``, glm4-9b at full width and depth (40 layers,
    9,399,435,264 parameters) on (dp 1, tp 4) — g1 2 KV-head groups x g2 2
    sequence shards, so the ``wq`` subgroup gather and the flash-decoding
-   merge run — batch 16 (cut from 128), a 512-token prompt and 16 steps,
+   merge run — batch 16 (cut from 128), a 256-token prompt and 8 steps,
    with the bf16 cache and then the int8 one (fed the bf16 run's tokens);
    ``serve_granite_moe_tp``, granite-moe-1b-a400m at full width and depth
-   on (2, 2) (the DP weight gathers and ``_moe_decode``), batch 16, 512
-   and 8, both caches; ``serve_families``, mamba2-1.3b (8 layers),
+   on (2, 2) (the DP weight gathers and ``_moe_decode``), batch 16, 256
+   and 4, both caches; ``serve_families``, mamba2-1.3b (8 layers),
    recurrentgemma-9b (3 layers) and whisper-small (full depth, its encoder
    over 1,500 stub frames) on (2, 2), batch 4, 64 and 4.  Checks: every
    TP rank returns the same tokens, ids below the vocab plus tp (its
@@ -221,18 +223,26 @@ nothing of the JAX package.  The script
    f32, causal and not, and f16, causal); then head dims the wrapper pads
    (16, every smoke config's, in bf16; 48 in f32) and shapes the
    reference sends to its plain version (Sq = Sk = 1,000, causal, and 8
-   queries over 4,096 keys, at qwen3-32b's heads in bf16), and head dim
-   512 (16 heads, one sequence of 4,096, causal; bf16 and f32), past the
-   built widths.  The bf16 and the f16 cases are the wgmma kernel's
-   paths, the f32 ones the CUDA-core kernel's, head dim 512 the wide
-   kernel's; each kernel's cases are one path.  It times the kernel, holds its output on the first 2 of BH
+   queries over 4,096 keys, at qwen3-32b's heads in bf16), and head dims
+   past 256 (16 heads, one sequence of 4,096, causal): 512 in bf16, f16
+   and f32, and 320 in bf16 (padded to 384).  The bf16 and the f16 cases
+   up to head dim 256 are the wgmma kernel's paths, the f32 ones the
+   CUDA-core kernel's; past 256 the bf16 and f16 cases take the wide
+   wgmma kernel (``csrc/flash_attention_wgmma_wide.cu``, one path for
+   each case) and the f32 case the wide f32 kernel
+   (``csrc/flash_attention_wide.cu``: three TF32 passes on the tensor
+   cores).  It times the kernel, holds its output on the first 2 of BH
    against the plain version (which holds a (BH, Sq, Sk) f32 score
    tensor, so it runs 2 of BH at a time), times the plain version over
    all of BH in chunks of 2, and times ``scaled_dot_product_attention`` on
    the same tensors as the library call (used nowhere in the port; the
    first of its backends that takes the shape, named), printing SDPA's
    own share of the kernel's limit against the plain version as
-   information.  The bound counts the unpadded head dim's operations;
+   information.  The bound counts the unpadded head dim's operations, at
+   the tensor cores' bf16 rate for bf16 and f16, at the CUDA cores' f32
+   rate for f32 up to head dim 256, and past 256 (where the f32 kernel
+   computes each product as three TF32 ones) at the lower of that and
+   three TF32 operations for each at the TF32 rate;
 13. runs the paper's algorithms (``repro_torch.core``) on the card: at
    d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
    of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
@@ -281,6 +291,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 on the tensor cores, dense
+TF32_OPS_PER_S = 495e12          # H100 SXM TF32 on the tensor cores, dense
 SLICE = 1 << 24                  # coordinates compared against the plain version
 FULL_D = 277_845_504             # whisper-small's parameter count
 CLIENTS = 16                     # clients per full-width round
@@ -301,11 +312,13 @@ FAMILY_RUNS = (                  # (arch, layers, steps, optimizer state)
 WHISPER_DEC_SEQ = 448            # whisper-small's decoder tokens
 WHISPER_STEPS = 2                # whisper-small's full training steps
 SERVE_S_MAX = 32_768             # decode_32k's cache positions
-# the serving phases' runs: batch cut from decode_32k's 128
+# the serving phases' runs: batch cut from decode_32k's 128; for the time
+# limit the prompts of glm4 and granite cut from 512 tokens and their
+# decode steps from 16 and 8 (the same code runs fewer times)
 SERVE_GLM4 = [dict(arch="glm4-9b", layers=None, mesh=(1, 4), batch=16,
-                   prompt=512, new=16, kv_quant=(False, True))]
+                   prompt=256, new=8, kv_quant=(False, True))]
 SERVE_GRANITE = [dict(arch=MOE_ARCH, layers=None, mesh=(2, 2), batch=16,
-                      prompt=512, new=8, kv_quant=(False, True))]
+                      prompt=256, new=4, kv_quant=(False, True))]
 SERVE_FAMILIES = [dict(arch=a, layers=n, mesh=(2, 2), batch=4, prompt=64,
                        new=4, kv_quant=(False,))
                   for a, n in (("mamba2-1.3b", 8), ("recurrentgemma-9b", 3),
@@ -333,8 +346,14 @@ KERNEL_SOURCES = {
     "flash_attention_wgmma_f16": (
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:62"),
-    "flash_attention_wide": (
-        "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+    "flash_attention_wgmma_wide": (
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma_wide.cu",
+        "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wgmma_wide_f16": (
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma_wide.cu",
+        "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wgmma_wide_d320": (
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma_wide.cu",
         "src/repro/kernels/flash_attention.py:62"),
     "flash_attention_wide_f32": (
         "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
@@ -413,9 +432,11 @@ ATTENTION_CASES = (
     ("qwen3-32b heads, Sq 8 over Sk 4,096", 64, 8, 128, (8, 4_096), 1,
      "bfloat16", (False,)),
     # past head dim 256 (no config of the repo's has it; the reference's
-    # kernel takes any D): the wide kernel
+    # kernel takes any D): the wide kernels, D 320 padded to 384
     ("head dim 512, 16 heads", 16, 16, 512, 4_096, 1, "bfloat16", (True,)),
     ("head dim 512, 16 heads", 16, 16, 512, 4_096, 1, "float32", (True,)),
+    ("head dim 512, 16 heads", 16, 16, 512, 4_096, 1, "float16", (True,)),
+    ("head dim 320, 16 heads", 16, 16, 320, 4_096, 1, "bfloat16", (True,)),
 )
 # ops.flash_attention's kernel for each dtype (one launch count for all);
 # bf16 and f16 are two instances of the wgmma kernel, with their own
@@ -423,18 +444,23 @@ ATTENTION_CASES = (
 ATTENTION_KERNEL = {"bfloat16": "flash_attention_wgmma",
                     "float32": "flash_attention",
                     "float16": "flash_attention_wgmma_f16"}
-# past head dim 256: the wide kernel, one entry for each type it is checked
-# in
-ATTENTION_WIDE = {"bfloat16": "flash_attention_wide",
-                  "float32": "flash_attention_wide_f32"}
+# past head dim 256: the wide kernels, one entry for each (dtype, head dim)
+# checked: bf16 and f16 take the wide wgmma kernel, f32 the wide f32 one
+# (three TF32 passes on the tensor cores)
+ATTENTION_WIDE = {("bfloat16", 512): "flash_attention_wgmma_wide",
+                  ("float16", 512): "flash_attention_wgmma_wide_f16",
+                  ("bfloat16", 320): "flash_attention_wgmma_wide_d320",
+                  ("float32", 512): "flash_attention_wide_f32"}
 
 
 def attention_kernel(dt: str, hd: int) -> str:
     """The ``kernels``-line entry of attention in ``dt`` at head dim hd."""
-    return (ATTENTION_WIDE if hd > 256 else ATTENTION_KERNEL)[dt]
-# the wgmma kernel's P.V takes two products (P split into hi and lo), so
-# its tensor cores issue 1.5x the useful operations
+    return ATTENTION_WIDE[(dt, hd)] if hd > 256 else ATTENTION_KERNEL[dt]
+# the wgmma kernels' P.V takes two products (P split into hi and lo), so
+# their tensor cores issue 1.5x the useful operations
 BF16_ISSUED = 1.5
+# the wide f32 kernel issues three TF32 products for each f32 one
+TF32_ISSUED = 3
 # (rtol, atol) of the kernel against its plain version.  Both compute in
 # f32 and round once to the output type, so bf16 outputs differ by at most
 # one bf16 step, 2^-7 of the value (rtol 1e-2 leaves a margin of 1.28),
@@ -562,23 +588,28 @@ def ptxas_spills(report: str) -> dict:
 
 def attention_sass(_build) -> dict:
     """Every instance of the attention kernels, one per (input type, head
-    dim; the wide kernel one per input type): the wgmma kernel's must show
-    HGMMA (wgmma) and UTMALDG (TMA loads) in its SASS, and none of the
-    three libraries may have spilled (0 spill-store bytes in ptxas's
-    report of this build, where this process built it, and no local
-    memory in ``cuobjdump -res-usage``)."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    dim): the two wgmma kernels' must show HGMMA (wgmma) and UTMALDG (TMA
+    loads) in their SASS, the wide f32 kernel's HMMA (mma.sync) and
+    UTMALDG, and none of the four libraries may have spilled
+    (0 spill-store bytes in ptxas's report of this build, where this
+    process built it, and no local memory in ``cuobjdump -res-usage``)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, WIDE_HEAD_DIMS
 
-    # the f32 kernel at each built head dim, the wgmma kernel at each
-    # (input type, head dim), by their mangled names
+    halves = ("13__nv_bfloat16", "6__half")
+    # by their mangled names: the f32 kernel at each built head dim, the
+    # wgmma kernel at each (input type, head dim), the wide wgmma kernel at
+    # each (input type, half of the head dim), the wide f32 kernel at each
+    # (input type, 128-column groups of its block: 3 at D 384, f32 only; 4
+    # at 512 and past it)
     instances = {
         "flash_attention": [f"flash_fwd_kernelILi{d}E" for d in HEAD_DIMS],
         "flash_attention_wgmma": [f"flash_wgmma_kernelI{t}Li{d}E"
-                                  for t in ("13__nv_bfloat16", "6__half")
-                                  for d in HEAD_DIMS],
-        "flash_attention_wide": [f"flash_wide_kernelI{t}E"
-                                 for t in ("f", "13__nv_bfloat16",
-                                           "6__half")]}
+                                  for t in halves for d in HEAD_DIMS],
+        "flash_attention_wgmma_wide": [
+            f"flash_wgmma_wide_kernelI{t}Li{d // 2}E"
+            for t in halves for d in WIDE_HEAD_DIMS],
+        "flash_attention_wide": ["flash_wide_kernelIfLi3E"] + [
+            f"flash_wide_kernelI{t}Li4E" for t in ("f",) + halves]}
     out = {}
     for lib, names in instances.items():
         parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
@@ -590,12 +621,15 @@ def attention_sass(_build) -> dict:
             check(len(found) == 1, f"{lib}: {len(found)} functions named "
                   f"like {inst} in the SASS")
             fn = found[0]
-            c = sass_counts(bodies[fn], ("HGMMA", "UTMALDG",
+            c = sass_counts(bodies[fn], ("HGMMA", "HMMA", "UTMALDG",
                                          "WARPGROUP.DEPBAR"))
             c.update(usage.get(fn, {}), spill_store_bytes=spills.get(fn))
-            if lib == "flash_attention_wgmma":
+            if lib.startswith("flash_attention_wgmma"):
                 check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
                       f"{fn}'s SASS has no HGMMA or no UTMALDG: {c}")
+            if lib == "flash_attention_wide":
+                check(c["HMMA"] > 0 and c["UTMALDG"] > 0,
+                      f"{fn}'s SASS has no HMMA or no UTMALDG: {c}")
             check(c.get("local") == 0 and not c["spill_store_bytes"],
                   f"{lib} {fn} spilled: {c}")
             out[inst] = c
@@ -4245,8 +4279,9 @@ def attention_pairs(sq: int, sk: int, causal: bool) -> int:
 def attention(torch, seed: int):
     """The attention phase: one main path for each kernel entry, the bf16
     and the f16 cases (two instances of the wgmma kernel), the f32 cases
-    (the CUDA-core kernel) and the cases past head dim 256 in bf16 and f32
-    (the wide kernel), each driven with the counts set to 0 just before it
+    (the CUDA-core kernel) and each case past head dim 256 (bf16 and f16 at
+    D 512 and bf16 at D 320 the wide wgmma kernel, f32 at D 512 the wide
+    f32 kernel), each driven with the counts set to 0 just before it
     and read just after.  The comparison with the plain version reuses the kept
     outputs and launches nothing.  Returns {kernel: (kernels-line entry,
     launches)}."""
@@ -4330,6 +4365,18 @@ def attention(torch, seed: int):
             rate = F32_OPS_PER_S if dt == "float32" else BF16_OPS_PER_S
             nbytes = 2 * bh * (sq + sk) * hd * elt
             b, by = bound(nbytes, useful, rate)
+            extra = {}
+            if dt != "float32":
+                extra["issued_bound_ms"], _ = bound(
+                    nbytes, BF16_ISSUED * useful, rate)
+            elif hd > 256:
+                # the wide f32 kernel computes each f32 product as three
+                # TF32 ones on the tensor cores, within f32's tolerance:
+                # the least time at f32 precision is the lower of that and
+                # the CUDA cores' f32 rate (kept as information)
+                extra["f32_rate_bound_ms"] = b
+                b, by = min((b, by), bound(nbytes, TF32_ISSUED * useful,
+                                           TF32_OPS_PER_S))
             c.update(kernel=name, shape=f"BH={bh}, Sq={sq}, Sk={sk}, "
                      f"D={hd}", plain_ms=plain_ms, bound_ms=b, bound_by=by,
                      share_of_bound=b / c["ms"], library_ms=lib_ms,
@@ -4337,10 +4384,7 @@ def attention(torch, seed: int):
                      share_of_limit=share, sdpa_share_of_limit=sdpa_share,
                      sdpa_backend=backend.name,
                      useful_tflop=useful / 1e12,
-                     tflop_per_s=useful / c["ms"] / 1e9)
-            if dt != "float32":
-                c["issued_bound_ms"], _ = bound(nbytes, BF16_ISSUED * useful,
-                                                rate)
+                     tflop_per_s=useful / c["ms"] / 1e9, **extra)
             say("attention", **c)
             results.append(c)
             del q, k, v, o

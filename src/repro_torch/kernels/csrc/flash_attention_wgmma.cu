@@ -51,14 +51,9 @@
 // loaded, and those above a warpgroup's rows not computed; in causal mode
 // the blocks with the most key tiles start first.  No allocation; the
 // launch goes on the caller's stream.
-#include <cstdint>
 #include <climits>
-#include <type_traits>
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -66,9 +61,6 @@ constexpr int BQ = 128;            // query rows per block
 constexpr int BK = 64;             // keys per tile
 constexpr int THREADS = 384;       // producer warpgroup + 2 consumers
 constexpr float NEG = -1e30f;
-
-template <typename T>
-constexpr bool kF16 = std::is_same<T, __half>::value;
 
 template <int D>
 struct Layout {
@@ -84,252 +76,6 @@ struct Layout {
   // atom), which the launch does not promise
   static constexpr size_t SMEM = BYTES + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 3-d tensor map (column, row, bh) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c, int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c),
-         "r"(row), "r"(bh)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (all in 16-byte units)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-// K-major (the reduction dim contiguous): 8-row groups 1024 bytes apart;
-// the leading offset is not used with this swizzle
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
-// MN-major B of a 64-key tile: 8-key groups 1024 bytes apart, 64-column
-// blocks one tile's block (64 rows x 128 bytes) apart
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return smem_desc(addr, BK * 128, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of wgmma registers across the
-// fence, commit and wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// the accumulator operands d[i] .. d[i + 7] / d[i] .. d[i + 31] of an asm
-#define FA_D8(d, i) "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-#define FA_D32(d, i) FA_D8(d, i), FA_D8(d, (i) + 8), FA_D8(d, (i) + 16), FA_D8(d, (i) + 24)
-#define FA_A4(a) "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
-
-// the wgmma instructions, TY the input type ("bf16" or "f16")
-#define FA_SS_N64(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
-  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-#define FA_RS_N64(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
-  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-#define FA_RS_N128(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
-  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-#define FA_RS_N192(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
-  "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-#define FA_RS_N256(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
-  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
-  "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-
-// The wgmma products, T the input type (__nv_bfloat16 or __half).
-// S (64 x 64, f32) = A (64 x 16, shared) . B (16 x 64, shared), both K-major
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  if constexpr (kF16<T>)
-    asm volatile(FA_SS_N64("f16") : FA_D32(d, 0)
-                 : "l"(a), "l"(b), "r"(accumulate));
-  else
-    asm volatile(FA_SS_N64("bf16") : FA_D32(d, 0)
-                 : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// O (64 x D, f32) += A (64 x 16, registers) . B (16 x D, shared, MN-major)
-template <typename T, int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (D == 64) {
-    if constexpr (kF16<T>)
-      asm volatile(FA_RS_N64("f16") : FA_D32(d, 0)
-                   : FA_A4(a), "l"(b), "r"(1));
-    else
-      asm volatile(FA_RS_N64("bf16") : FA_D32(d, 0)
-                   : FA_A4(a), "l"(b), "r"(1));
-  } else if constexpr (D == 128) {
-    if constexpr (kF16<T>)
-      asm volatile(FA_RS_N128("f16") : FA_D32(d, 0), FA_D32(d, 32)
-                   : FA_A4(a), "l"(b), "r"(1));
-    else
-      asm volatile(FA_RS_N128("bf16") : FA_D32(d, 0), FA_D32(d, 32)
-                   : FA_A4(a), "l"(b), "r"(1));
-  } else if constexpr (D == 192) {
-    if constexpr (kF16<T>)
-      asm volatile(FA_RS_N192("f16")
-                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64)
-                   : FA_A4(a), "l"(b), "r"(1));
-    else
-      asm volatile(FA_RS_N192("bf16")
-                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64)
-                   : FA_A4(a), "l"(b), "r"(1));
-  } else {
-    static_assert(D == 256, "head dims 64, 128, 192 and 256 are built");
-    if constexpr (kF16<T>)
-      asm volatile(FA_RS_N256("f16")
-                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64), FA_D32(d, 96)
-                   : FA_A4(a), "l"(b), "r"(1));
-    else
-      asm volatile(FA_RS_N256("bf16")
-                   : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64), FA_D32(d, 96)
-                   : FA_A4(a), "l"(b), "r"(1));
-  }
-}
-
-// The input type's conversions: pairs packed as one 32-bit register, and
-// (p0, p1) split into pairs hi = T(p) and lo = T(p - hi)
-template <typename T> struct Elem;
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void split(float p0, float p1,
-                                               uint32_t& hi, uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = pack(__fsub_rn(p0, __low2float(h)), __fsub_rn(p1, __high2float(h)));
-  }
-};
-template <> struct Elem<__half> {
-  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void split(float p0, float p1,
-                                               uint32_t& hi, uint32_t& lo) {
-    const __half2 h = __floats2half2_rn(p0, p1);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = pack(__fsub_rn(p0, __low2float(h)), __fsub_rn(p1, __high2float(h)));
-  }
-};
-
-// The online-softmax step of one 64-key tile on a thread's S fragments
-// (rows r0, r0 + 8; keys key0 + 8 j + {0, 1}): p = exp2(s * scale_log2 -
-// m) into sc, the running max m (log2 domain) and this thread's part of
-// the row sums l updated, and alpha = exp2(m_old - m) for O.  The max is
-// taken over the raw scores, which scale_log2 > 0 leaves in order.  MASK:
-// keys past Sk or, where causal, past a row's position get p = 0.
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
-                                             float (&l)[2], float (&alpha)[2],
-                                             int r0, int key0, int sk,
-                                             int causal, float scale_log2) {
-  const float ninf = __int_as_float(0xff800000);
-  float mx[2] = {ninf, ninf};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (MASK) {
-        const int key = key0 + 8 * j + (e & 1);
-        const int row = r0 + 8 * (e >> 1);
-        if (!(key < sk && (!causal || key <= row))) sc[4 * j + e] = ninf;
-      }
-      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
-    }
-  float rs[2] = {0.f, 0.f}, neg_m[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], __fmul_rn(mx[r], scale_log2));
-    alpha[r] = exp2f(__fsub_rn(m[r], m_new));
-    m[r] = m_new;
-    neg_m[r] = -m_new;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(__fmaf_rn(sc[4 * j + e], scale_log2, neg_m[e >> 1]));
-      sc[4 * j + e] = p;
-      rs[e >> 1] = __fadd_rn(rs[e >> 1], p);
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), rs[r]);
-}
 
 // q, k, v: 3-d tensor maps over (bh, S, D) of T, boxes of 64 columns by
 // BQ (q) or BK (k, v) rows; out (bh, sq, D) of T.  Grid: query tiles x bh
@@ -441,7 +187,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t b = desc_mn_major(vb + kk * 16 * 128);
+        const uint64_t b = desc_mn_major(vb + kk * 16 * 128, BK * 128);
         wgmma_pv<T, D>(o, phi + 4 * kk, b);
         wgmma_pv<T, D>(o, plo + 4 * kk, b);
       }
@@ -549,41 +295,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           __fdiv_rn(o[4 * j + 2 * rr + 1], den));
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, from the libcuda the process has
-// loaded (so the library links against the runtime alone)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// a (bh, s, d) tensor of T as a 3-d map with 64-column boxes of `rows`
-// rows, 128-byte swizzle, zeros past the edges
-template <typename T>
-CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* p, int bh,
-                  int s, int d, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, Elem<T>::MAP, 3, const_cast<void*>(p), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <typename T, int D>

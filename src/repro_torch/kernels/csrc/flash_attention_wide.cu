@@ -1,339 +1,516 @@
-// Flash attention forward (online softmax) for head dims past 256, in f32
-// on the CUDA cores, for Hopper (sm_90a).
+// Flash attention forward (online softmax) for head dims past 256, for
+// Hopper (sm_90a): f32 at D 384 and any multiple of 512, and bf16 and f16
+// past 512, the products on the tensor cores in three TF32 passes.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
-// (_flash_kernel), for head dims D > 256, which the Pallas kernel takes and
-// the port's other two kernels (flash_attention.cu, f32, and
-// flash_attention_wgmma.cu, bf16 and f16, built for D <= 256) do not.  For
-// each (batch*head, query row) it computes
+// (_flash_kernel), for f32 inputs with D > 256 and bf16 and f16 inputs
+// with D > 512 (f32 up to 256 takes flash_attention.cu; bf16 and f16 up to
+// 256 flash_attention_wgmma.cu, up to 512 flash_attention_wgmma_wide.cu).
+// For each (batch*head, query row) it computes
 //   out = softmax(scale * q . K^T, masked) . V,   scale = float32(1/sqrt(D)),
-// with q scaled before the product (here by scale * log2(e), the
-// exponentials being base 2), and the scores, exponentials, running max,
-// sum, P and the accumulator in f32; out = acc / max(l, 1e-30), rounded
-// once to the input type.  Where causal, keys past the query's position
-// (both counted from 0) take no part, as the reference's -1e30 gives them
-// p = 0.  Inputs are f32, bf16 or f16 (converted to f32 as they are read);
-// D, BH, Sq and Sk are any sizes >= 1, and a ragged tile of queries, keys
-// or columns is masked.  P stays f32, so bf16 outputs hold the limit of the
-// plain version (which keeps P in f32) without the split P of the wgmma
-// kernel.
+// with the scores, exponentials (base 2, of scores scaled by scale *
+// log2(e) after the product), running max, sum, P and the accumulator in
+// f32; out = acc / max(l, 1e-30), rounded once to the input type.  Where
+// causal, keys past the query's position (both counted from 0) take no
+// part, as the reference's -1e30 gives them p = 0.  D is 384 (f32 only) or
+// a multiple of 512 (the wrapper pads any other D with zero columns and
+// passes the scale of the unpadded D); BH, Sq and Sk are any sizes >= 1,
+// and a ragged tile of queries or keys is masked.
+//
+// Numerics.  Each operand x of both products (q, k, p, v) is split into
+// x_hi = tf32(x) and x_lo = tf32(x - x_hi), and a . b is summed in f32 as
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (mma.sync m16n8k8 TF32 with f32
+// accumulators): each product within about 2^-21 of its f32 value, where
+// one TF32 pass would be off by 2^-11 and miss the f32 tolerance.  bf16
+// and f16 values are exact in TF32 (their lo is 0), so for them the
+// scores take one product (q_hi.k_hi) and P.V two (p_lo.v + p_hi.v), with
+// the same sums as the three.  The tf32 wgmma reads
+// B only K-major, and P.V's B = V is stored with the columns contiguous;
+// mma.sync takes its fragments from registers, loaded from padded rows, so
+// V needs no transpose.
 //
 // Bound on this card: operations.  Per query row and visible key, 2 D
-// multiply-adds; this kernel does the scores once for each slice of
-// DV = 128 output columns, so ceil(D / 128) + 1 multiply-adds of D per
-// pair instead of 2 (2.5x the useful work at D = 512).
+// multiply-adds; the tensor cores issue three of them for each in TF32
+// (bf16 and f16: 1.5).
 //
-// Design, a simple kernel first (its speed is later work): one block of
-// 256 threads per (bh, 64 query rows, 128 output columns), the column
-// slice innermost in the grid so that the blocks of one query tile, which
-// read the same Q and K, run together.  Thread (ty, tx) of the 32 x 8 grid
-// owns rows ty and ty + 32, keys tx + 8 j (j < 8) of each 64-key tile and
-// output columns 4 tx + 32 c .. + 3 of the slice.  For each key tile the
-// scores accumulate over D in chunks of 32: the chunk of Q (scaled) and of
-// K is converted to f32 into shared tiles padded by 4 floats, and each
-// thread reads them as 16-byte loads.  Then the online softmax (as in
-// flash_attention.cu: row max and sum over the 8 lanes of a row by
-// shuffles), P into shared memory, the V tile's slice converted to f32
-// into shared memory, and P.V into the accumulator.  All products are
-// explicit f32 FMAs.  Loads are one element a thread at a time (coalesced
-// across the warp); those of the next chunk of Q and K are issued into
-// registers before the current chunk's products, so their latency hides
-// behind them (one block an SM: nothing else would hide it; loading the V
-// slice the same way did not help).  No
-// allocation; the launch goes on the caller's stream.
+// Design: one block of 384 threads (12 warps) per (bh, BQ = 48 query rows,
+// group of DG output columns), DG = D (384 or 512) up to 512 and 512
+// past it.  Each block computes every score of its rows once over all of
+// D (past 512, once for each group) and keeps its rows' whole accumulator
+// in registers: 48 x 512 f32 is 64 a thread.  Q, K and V stream through a
+// ring of 3 shared-memory stages by TMA (one thread issues the boxes of a
+// chunk; an mbarrier counts their bytes; one block barrier a chunk frees
+// the stage the next load takes), in chunks of about equal work: for each
+// 128-key tile, D / 64 score chunks (64 columns of the 48 Q rows and of
+// the 128 K rows), then 8 V chunks (16 keys x DG columns).  Warp (wr, wx) of the 3 x 4 warp grid
+// computes rows 16 wr .. + 15 of both products: keys 32 wx .. + 31 of the
+// scores (4 m16n8 tiles), then columns DG / 4 wx .. of P.V (DG / 32
+// tiles), loading each fragment element from rows padded so that a warp's
+// loads fall in distinct banks.  The raw scores go to shared memory, where
+// 8 threads a row take the tile's online-softmax step (row max and sum by
+// shuffles over the 8 lanes, P written back in place, alpha for the
+// accumulator beside it).  Key tiles wholly above a block's rows are not
+// visited; in causal mode the blocks with the most key tiles start first.
+// No allocation; the launch goes on the caller's stream.
 #include <climits>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
-constexpr int BK = 64;             // keys per tile
-constexpr int TX = 8, TY = 32;     // thread grid
-constexpr int THREADS = TX * TY;
-constexpr int RM = 2;              // query rows per thread
-constexpr int BQ = TY * RM;        // query rows per block
-constexpr int DC = 32;             // head-dim chunk of the scores
-constexpr int DV = 128;            // output columns per block
-constexpr int NC = DV / 32;        // float4 output columns per thread
-constexpr int LDC = DC + 4;        // row stride of the Q and K chunks
-constexpr int LDV = DV + 4;        // row stride of the V slice
-constexpr int LP = BK + 8;         // row stride of P
+constexpr int THREADS = 384;       // 12 warps: a 3 x 4 grid
+constexpr int BQ = 48;             // query rows per block
+constexpr int BK = 128;            // keys per tile
+constexpr int DC = 64;             // columns of a score chunk
+constexpr int VK = 16;             // keys of a V chunk
+constexpr int NV = BK / VK;        // V chunks a tile
+constexpr int STAGES = 3;
+constexpr int LP = BK + 4;         // row stride of the scores and P: the
+                                   // 8 rows of an A fragment fall 4 banks
+                                   // apart
+constexpr int GROUP = 512;         // output columns of a block past 512
 constexpr float NEG = -1e30f;
-constexpr size_t kSmemBytes =
-    (size_t)(BQ * LDC + BK * LDC + BK * LDV + BQ * LP) * sizeof(float);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Shared memory of one instance, in bytes: the stages, their mbarriers,
+// then the scores / P and the rows' alpha and l (f32).  A stage holds a
+// score chunk (the Q rows, then the K rows, each LDC elements long) or a V
+// chunk (four quarters of VK rows, each LDV elements long, one for each
+// warp column).  TMA writes each as one box whose rows run past the
+// chunk's columns by 16 bytes (in a V quarter 32), so the rows keep a
+// stride at which a warp's fragment loads fall in distinct banks (in f32:
+// the 8 rows of an A or B fragment 4 banks apart in a score chunk, the 4
+// rows of a V fragment 8 apart); the extra columns are the next chunk's,
+// or zeros past D, and go unread.  Every box starts on 128 bytes.
+template <typename T, int DG>
+struct Smem {
+  static constexpr int E = 16 / sizeof(T);     // elements of 16 bytes
+  static constexpr int LDC = DC + E;
+  static constexpr int LDV = DG / 4 + 2 * E;
+  static constexpr uint32_t Q_BYTES = BQ * LDC * sizeof(T);
+  static constexpr uint32_t K_BYTES = BK * LDC * sizeof(T);
+  static constexpr uint32_t VQ_BYTES = VK * LDV * sizeof(T);
+  static constexpr uint32_t S_BYTES = Q_BYTES + K_BYTES;
+  static constexpr uint32_t V_BYTES = 4 * VQ_BYTES;
+  static constexpr uint32_t STAGE = S_BYTES > V_BYTES ? S_BYTES : V_BYTES;
+  static constexpr uint32_t BAR_OFF = STAGES * STAGE;
+  static constexpr uint32_t PS_OFF = (BAR_OFF + 8 * STAGES + 127) / 128 * 128;
+  // the dynamic shared memory's start is aligned up to 128 bytes
+  static constexpr size_t BYTES =
+      PS_OFF + (size_t)(BQ * LP + 2 * BQ) * sizeof(float) + 128;
+  static_assert(Q_BYTES % 128 == 0 && K_BYTES % 128 == 0 &&
+                VQ_BYTES % 128 == 0, "boxes start on 128 bytes");
+};
+
+// one element of shared memory as f32
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float ldf(const __half* p) {
+  return __half2float(*p);
+}
 
+// two f32 values rounded to T, at two consecutive elements of device memory
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void st2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// x = hi + lo + (an error below 2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in f32), both rounded to nearest
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = __fsub_rn(x, __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in three tf32 products, the small terms first: a_lo.b_hi +
+// a_hi.b_lo + a_hi.b_hi (a_lo.b_lo, below 2^-22 of the product, is left
+// out)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// an element of shared memory that is exact in TF32 (bf16, f16), as TF32
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
+__device__ __forceinline__ uint32_t exact_tf32(const T* p) {
+  return __float_as_uint(ldf(p));
 }
 
-__device__ __forceinline__ float get(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// The online-softmax step of one key tile for a thread's RM rows (row0 +
-// 32 i) and 8 keys (key0 + 8 j), as in flash_attention.cu: P goes to the
-// thread's places in `ps`; the running max, sum and accumulator are
-// updated.  MASK: some keys of the tile may be past Sk or, where causal,
-// past a row's position, and get p = 0.
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&sc)[RM][8], float* m,
-                                             float* l, float (&acc)[RM][4 * NC],
-                                             float* ps, int row0, int key0,
-                                             int sk, int causal, int ps_off) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = row0 + TY * i;
-    bool vis[8];
-    float mx = NEG;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int key = key0 + TX * j;
-      vis[j] = !MASK || (key < sk && (!causal || key <= row));
-      if (vis[j]) mx = fmaxf(mx, sc[i][j]);
-    }
-#pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m[i], mx);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p = vis[j] ? exp2f(__fsub_rn(sc[i][j], m_new)) : 0.f;
-      ps[ps_off + TY * i * LP + TX * j] = p;
-      rs = __fadd_rn(rs, p);
-    }
-#pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1)
-      rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, off));
-    const float alpha = exp2f(__fsub_rn(m[i], m_new));
-    l[i] = __fadd_rn(__fmul_rn(l[i], alpha), rs);
-    m[i] = m_new;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
-  }
-}
-
-// one block an SM: at two (<= 128 registers) ptxas spilled 16 bytes
-template <typename T>
+// q, k, v: 3-d tensor maps over (bh, S, dp) of T (boxes of LDC columns by
+// BQ or BK rows, of LDV columns by VK rows); out (bh, sq, dp) of T.  A
+// block's group of output columns is NB blocks of 128 (DG = 128 NB).
+// Grid: groups x query tiles x bh blocks, the group fastest, then bh.
+template <typename T, int NB>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int sq,
-                  int sk, int d, int n_dv, float scale_log2, int causal) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // BQ x LDC, scaled q
-  float* ks = qs + BQ * LDC;                     // BK x LDC
-  float* vs = ks + BK * LDC;                     // BK x LDV
-  float* ps = vs + BK * LDV;                     // BQ x LP
+flash_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  T* __restrict__ out, int sq, int sk, int dp,
+                  float scale_log2, int causal) {
+  constexpr int DG = 128 * NB;
+  using L = Smem<T, DG>;
+  constexpr int LDC = L::LDC, LDV = L::LDV;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 127u) & ~127u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t full = base + L::BAR_OFF;          // a stage's mbarrier
+  float* ps = reinterpret_cast<float*>(smem + L::PS_OFF);   // BQ x LP
+  float* als = ps + BQ * LP;                                // alpha, BQ
+  float* lsum = als + BQ;                                   // l, BQ
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 4, wx = warp % 4;
+  const int n_g = dp / DG;
   const int n_qt = (sq + BQ - 1) / BQ;
-  const int n_bh = gridDim.x / (n_qt * n_dv);
-  const int dvc = blockIdx.x % n_dv;
-  const int rest = blockIdx.x / n_dv;
+  const int n_bh = gridDim.x / (n_qt * n_g);
+  const int g = blockIdx.x % n_g;
+  const int rest = blockIdx.x / n_g;
   const int64_t bh = rest % n_bh;
   const int t_idx = rest / n_bh;
   // in causal mode the query tiles with the most key tiles start first
   const int qt = causal ? n_qt - 1 - t_idx : t_idx;
-  const int q0 = qt * BQ, cv0 = dvc * DV;
-  const T* qb = q + bh * sq * d;
-  const T* kb = k + bh * sk * d;
-  const T* vb = v + bh * sk * d;
+  const int q0 = qt * BQ, g0 = g * DG;
   // keys past the tile's last query row are masked for all of its rows
   const int kend = causal ? min(sk, q0 + BQ) : sk;
   const int n_kt = (kend + BK - 1) / BK;
-  const int ps_off = ty * LP + tx;   // this thread's first place in P
+  const int ns = dp / DC;            // score chunks a tile
+  const int nch = ns + NV;           // chunks a tile
+  const int total = n_kt * nch;
 
-  float m[RM], l[RM], acc[RM][4 * NC];
+  // chunk n of the block's stream into its stage, by TMA from one
+  // thread: of key tile n / nch, score chunk r < ns (columns r DC of the Q
+  // rows and of the tile's K rows) or V chunk r - ns (VK keys, the group's
+  // columns); rows past Sq or Sk and columns past D arrive as zeros
+  auto load_chunk = [&](int n) {
+    const int s = n % STAGES, kt = n / nch, r = n % nch;
+    const uint32_t dst = base + s * L::STAGE, bar = full + 8 * s;
+    if (r < ns) {
+      mbar_expect_tx(bar, L::S_BYTES);
+      tma_load(dst, &tq, bar, r * DC, q0, (int)bh);
+      tma_load(dst + L::Q_BYTES, &tk, bar, r * DC, kt * BK, (int)bh);
+    } else {
+      mbar_expect_tx(bar, L::V_BYTES);
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
-
-  // this thread's elements of a chunk of Q and of K: row tid / DC + 8 e,
-  // column tid % DC (BQ == BK); the next chunk is loaded into registers
-  // while the current one computes
-  constexpr int PER = BQ * DC / THREADS;
-  static_assert(BQ == BK && PER * THREADS == BQ * DC, "chunk layout");
-  const int cr = tid / DC, cc = tid % DC;
-  float nq[PER], nk[PER];
-  auto fetch = [&](int k0, int c0) {
-    const bool in_d = c0 + cc < d;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      const int r = cr + (THREADS / DC) * e;
-      nq[e] = in_d && q0 + r < sq
-                  ? to_f32(qb[(int64_t)(q0 + r) * d + c0 + cc]) : 0.f;
-      nk[e] = in_d && k0 + r < sk
-                  ? to_f32(kb[(int64_t)(k0 + r) * d + c0 + cc]) : 0.f;
+      for (int w = 0; w < 4; ++w)
+        tma_load(dst + w * L::VQ_BYTES, &tv, bar, g0 + w * (DG / 4),
+                 kt * BK + (r - ns) * VK, (int)bh);
     }
   };
-  fetch(0, 0);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int next = 0, idx = 0;
+  for (; next < STAGES - 1; ++next)
+    if (tid == 0 && next < total) load_chunk(next);
+  // the next chunk of the stream, landed; the stage of the chunk before it
+  // (every thread is done with it, after the barrier) takes the chunk
+  // STAGES - 1 ahead
+  auto acquire = [&]() -> const T* {
+    __syncthreads();
+    if (tid == 0 && next < total) load_chunk(next);
+    ++next;
+    const int s = idx % STAGES;
+    mbar_wait(full + 8 * s, (idx / STAGES) & 1);
+    ++idx;
+    return reinterpret_cast<const T*>(smem + s * L::STAGE);
+  };
+
+  // the thread's places in the mma fragments of warp (wr, wx): rows
+  // 16 wr + r8 (+ 8) of the block; in the scores keys 32 wx + 8 n + 2 c4
+  // (+ 1) of 4 key groups n, in P.V columns DG / 4 wx + 8 n + 2 c4 (+ 1)
+  // of NT column groups n; A fragments at columns c4 (+ 4), B fragments
+  // at rows c4 (+ 4) of the reduction
+  constexpr int NT = DG / 32;
+  const int r8 = lane / 4, c4 = lane % 4;
+  const int row0 = 16 * wr + r8;
+  // its row and 16 keys in the softmax step
+  const int srow = tid / 8, seg = tid % 8;
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m = NEG, l = 0.f;           // srow's running max and sum
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    float sc[RM][8];
+    float sc[4][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-
-    for (int c0 = 0; c0 < d; c0 += DC) {
-      __syncthreads();             // every thread is done with the chunks
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    for (int r = 0; r < ns; ++r) {
+      const T* qs = acquire();
+      const T* qa = qs + row0 * LDC + c4;
+      const T* kb_ = qs + (BQ + 32 * wx + r8) * LDC + c4;
 #pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        const int r = cr + (THREADS / DC) * e;
-        qs[r * LDC + cc] = __fmul_rn(nq[e], scale_log2);
-        ks[r * LDC + cc] = nk[e];
-      }
-      __syncthreads();
-      if (c0 + DC < d) fetch(k0, c0 + DC);
-      else if (kt + 1 < n_kt) fetch(k0 + BK, 0);
+      for (int kk = 0; kk < DC; kk += 8) {
+        if constexpr (std::is_same<T, float>::value) {
+          uint32_t ah[4], al[4];
+          split_tf32(ldf(qa + kk), ah[0], al[0]);
+          split_tf32(ldf(qa + 8 * LDC + kk), ah[1], al[1]);
+          split_tf32(ldf(qa + kk + 4), ah[2], al[2]);
+          split_tf32(ldf(qa + 8 * LDC + kk + 4), ah[3], al[3]);
 #pragma unroll
-      for (int c = 0; c < DC; c += 4) {
-        float4 a[RM];
+          for (int n = 0; n < 4; ++n) {
+            uint32_t bh[2], bl[2];
+            split_tf32(ldf(kb_ + 8 * n * LDC + kk), bh[0], bl[0]);
+            split_tf32(ldf(kb_ + 8 * n * LDC + kk + 4), bh[1], bl[1]);
+            mma_3xtf32(sc[n], ah, al, bh, bl);
+          }
+        } else {
+          const uint32_t a[4] = {
+              exact_tf32(qa + kk), exact_tf32(qa + 8 * LDC + kk),
+              exact_tf32(qa + kk + 4), exact_tf32(qa + 8 * LDC + kk + 4)};
 #pragma unroll
-        for (int i = 0; i < RM; ++i)
-          a[i] = *reinterpret_cast<const float4*>(qs + (ty + TY * i) * LDC + c);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 b =
-              *reinterpret_cast<const float4*>(ks + (tx + TX * j) * LDC + c);
-#pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            sc[i][j] = __fmaf_rn(a[i].x, b.x, sc[i][j]);
-            sc[i][j] = __fmaf_rn(a[i].y, b.y, sc[i][j]);
-            sc[i][j] = __fmaf_rn(a[i].z, b.z, sc[i][j]);
-            sc[i][j] = __fmaf_rn(a[i].w, b.w, sc[i][j]);
+          for (int n = 0; n < 4; ++n) {
+            const uint32_t b[2] = {exact_tf32(kb_ + 8 * n * LDC + kk),
+                                   exact_tf32(kb_ + 8 * n * LDC + kk + 4)};
+            mma_tf32(sc[n], a, b);
           }
         }
       }
     }
-
-    // only a tile at the diagonal or at the ragged end of K masks keys
-    if ((causal && k0 + BK - 1 > q0) || k0 + BK > sk)
-      softmax_tile<true>(sc, m, l, acc, ps, q0 + ty, k0 + tx, sk, causal,
-                         ps_off);
-    else
-      softmax_tile<false>(sc, m, l, acc, ps, q0 + ty, k0 + tx, sk, causal,
-                          ps_off);
-
-    __syncthreads();               // P is written, the last V is read
-    for (int i = tid; i < BK * DV; i += THREADS) {
-      const int r = i / DV, c = i % DV;
-      vs[r * LDV + c] = k0 + r < sk && cv0 + c < d
-                            ? to_f32(vb[(int64_t)(k0 + r) * d + cv0 + c])
-                            : 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float* p0 = ps + row0 * LP + 32 * wx + 8 * n + 2 * c4;
+      *reinterpret_cast<float2*>(p0) = make_float2(sc[n][0], sc[n][1]);
+      *reinterpret_cast<float2*>(p0 + 8 * LP) =
+          make_float2(sc[n][2], sc[n][3]);
     }
     __syncthreads();
 
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 p[RM];
+    // the online-softmax step of row srow over keys 16 seg .. + 15: the
+    // max over the raw scores (scale_log2 > 0 keeps their order), p =
+    // exp2(s scale_log2 - m); a masked key (past Sk or, where causal, past
+    // the row's position) gets p = 0
+    {
+      float* prow = ps + srow * LP + 16 * seg;
+      const int row = q0 + srow, key = k0 + 16 * seg;
+      const float ninf = __int_as_float(0xff800000);
+      float s[16];
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
-        p[i] = *reinterpret_cast<const float4*>(ps + (ty + TY * i) * LP + j);
+      for (int e = 0; e < 4; ++e) {
+        const float4 x = *reinterpret_cast<const float4*>(prow + 4 * e);
+        s[4 * e] = x.x;
+        s[4 * e + 1] = x.y;
+        s[4 * e + 2] = x.z;
+        s[4 * e + 3] = x.w;
+      }
+      float mx = ninf;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        if (!(key + e < sk && (!causal || key + e <= row))) s[e] = ninf;
+        mx = fmaxf(mx, s[e]);
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m, __fmul_rn(mx, scale_log2));
+      const float alpha = exp2f(__fsub_rn(m, m_new));
+      m = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        s[e] = exp2f(__fmaf_rn(s[e], scale_log2, -m_new));
+        rs = __fadd_rn(rs, s[e]);
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, off));
+      l = __fadd_rn(__fmul_rn(l, alpha), rs);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<float4*>(prow + 4 * e) =
+            make_float4(s[4 * e], s[4 * e + 1], s[4 * e + 2], s[4 * e + 3]);
+      if (seg == 0) als[srow] = alpha;
+    }
+    __syncthreads();
+
+    {
+      const float a0 = als[row0], a1 = als[row0 + 8];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              vs + (j + e) * LDV + 4 * tx + 32 * c);
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] = __fmul_rn(o[n][0], a0);
+        o[n][1] = __fmul_rn(o[n][1], a0);
+        o[n][2] = __fmul_rn(o[n][2], a1);
+        o[n][3] = __fmul_rn(o[n][3], a1);
+      }
+    }
+    for (int r = 0; r < NV; ++r) {
+      const T* vs = acquire();
+      const float* pa = ps + row0 * LP + r * VK + c4;
+      const T* vb_ = vs + (wx * VK + c4) * LDV + r8;
 #pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            const float pe = get(p[i], e);
-            acc[i][4 * c + 0] = __fmaf_rn(pe, w.x, acc[i][4 * c + 0]);
-            acc[i][4 * c + 1] = __fmaf_rn(pe, w.y, acc[i][4 * c + 1]);
-            acc[i][4 * c + 2] = __fmaf_rn(pe, w.z, acc[i][4 * c + 2]);
-            acc[i][4 * c + 3] = __fmaf_rn(pe, w.w, acc[i][4 * c + 3]);
+      for (int kk = 0; kk < VK; kk += 8) {
+        uint32_t ah[4], al[4];
+        split_tf32(pa[kk], ah[0], al[0]);
+        split_tf32(pa[8 * LP + kk], ah[1], al[1]);
+        split_tf32(pa[kk + 4], ah[2], al[2]);
+        split_tf32(pa[8 * LP + kk + 4], ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if constexpr (std::is_same<T, float>::value) {
+            uint32_t bh[2], bl[2];
+            split_tf32(ldf(vb_ + kk * LDV + 8 * n), bh[0], bl[0]);
+            split_tf32(ldf(vb_ + (kk + 4) * LDV + 8 * n), bh[1], bl[1]);
+            mma_3xtf32(o[n], ah, al, bh, bl);
+          } else {
+            const uint32_t b[2] = {exact_tf32(vb_ + kk * LDV + 8 * n),
+                                   exact_tf32(vb_ + (kk + 4) * LDV + 8 * n)};
+            mma_tf32(o[n], al, b);
+            mma_tf32(o[n], ah, b);
           }
         }
+      }
     }
   }
 
+  if (seg == 0) lsum[srow] = l;
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + TY * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + 8 * h;
     if (row >= sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* o = out + (bh * sq + row) * d;
+    const float den = fmaxf(lsum[row0 + 8 * h], 1e-30f);
+    T* orow = out + (bh * sq + row) * dp + g0 + (DG / 4) * wx + 2 * c4;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = cv0 + 4 * tx + 32 * c + e;
-        if (col < d) o[col] = from_f32<T>(__fdiv_rn(acc[i][4 * c + e], den));
-      }
+    for (int n = 0; n < NT; ++n)
+      st2(orow + 8 * n, __fdiv_rn(o[n][2 * h], den),
+          __fdiv_rn(o[n][2 * h + 1], den));
   }
 }
 
+template <typename T> struct MapType;
+template <> struct MapType<float> {
+  static constexpr CUtensorMapDataType V = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <> struct MapType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType V = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct MapType<__half> {
+  static constexpr CUtensorMapDataType V = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// a (bh, s, d) tensor of T as a 3-d map with boxes of `cols` x `rows`,
+// no swizzle, zeros past the edges
 template <typename T>
+CUresult make_box_map(EncodeTiled enc, CUtensorMap* map, const void* p,
+                      int bh, int s, int d, int cols, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(T),
+                                 (cuuint64_t)s * d * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, MapType<T>::V, 3, const_cast<void*>(p), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename T, int NB>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int d, int causal, float scale_log2,
-           void* stream) {
+           cudaStream_t stream) {
+  constexpr int DG = 128 * NB;
+  using L = Smem<T, DG>;
+  const int64_t blocks = (int64_t)bh * ((sq + BQ - 1) / BQ) * (d / DG);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_box_map<T>(enc, &tq, q, bh, sq, d, L::LDC, BQ);
+  if (r == CUDA_SUCCESS)
+    r = make_box_map<T>(enc, &tk, k, bh, sk, d, L::LDC, BK);
+  if (r == CUDA_SUCCESS)
+    r = make_box_map<T>(enc, &tv, v, bh, sk, d, L::LDV, VK);
+  if (r != CUDA_SUCCESS) return -(int)r;
+  const size_t smem = L::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wide_kernel<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_wide_kernel<T, NB><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), sq, sk, d, scale_log2, causal);
+  return (int)cudaGetLastError();
+}
+
+// f32 takes D 384 (one group of 384 columns) and any multiple of 512; bf16
+// and f16 any multiple of 512 (up to 512 they take the wgmma kernels)
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
+             int sq, int sk, int d, int causal, float scale_log2,
+             void* stream) {
   cudaGetLastError();
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
-  const int n_dv = (d + DV - 1) / DV;
-  const int64_t blocks = (int64_t)bh * ((sq + BQ - 1) / BQ) * n_dv;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  flash_wide_kernel<T><<<(unsigned)blocks, THREADS, kSmemBytes,
-                         (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, d, n_dv,
-      scale_log2, causal);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (std::is_same<T, float>::value)
+    if (d == 384)
+      return launch<T, 3>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
+                          st);
+  if (d % GROUP == 0)
+    return launch<T, GROUP / 128>(q, k, v, out, bh, sq, sk, d, causal,
+                                  scale_log2, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous, of
-// one type; bh, sq, sk, d >= 1 (bh times the query tiles times the column
-// slices at most INT_MAX); scale_log2 = f32(1/sqrt(d)) * log2(e).  Each
-// returns the CUDA error code of the launch (0 = launched); any stale
-// error is cleared first so that the code reports this launch alone.
+// one type, on 16-byte boundaries; d: 384 (f32) or a multiple of 512; bh,
+// sq, sk >= 1 (bh times the query tiles of 48 rows times the column groups
+// at most INT_MAX); scale_log2 = f32(1/sqrt(D)) * log2(e), D the head dim
+// before any padding.  Each returns the CUDA error code of the launch (0 =
+// launched), or minus the driver's code where a tensor map could not be
+// made; any stale error is cleared first so that the code reports this
+// launch alone.
 extern "C" int flash_attention_wide_launch(const void* q, const void* k,
                                            const void* v, void* out, int bh,
                                            int sq, int sk, int d, int causal,
                                            float scale_log2, void* stream) {
-  return launch<float>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
-                       stream);
+  return dispatch<float>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
+                         stream);
 }
 
 extern "C" int flash_attention_wide_bf16_launch(
     const void* q, const void* k, const void* v, void* out, int bh, int sq,
     int sk, int d, int causal, float scale_log2, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, bh, sq, sk, d, causal,
-                               scale_log2, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, sk, d, causal,
+                                 scale_log2, stream);
 }
 
 extern "C" int flash_attention_wide_f16_launch(
     const void* q, const void* k, const void* v, void* out, int bh, int sq,
     int sk, int d, int causal, float scale_log2, void* stream) {
-  return launch<__half>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
-                        stream);
+  return dispatch<__half>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
+                          stream);
 }

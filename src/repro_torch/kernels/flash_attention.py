@@ -3,15 +3,25 @@
 Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas``:
 forward online-softmax attention over (BH, S, D) tensors, causal or not,
 scale 1/sqrt(D), f32, bf16 or f16 in, the input type out, f32 inside.
-bf16 and f16 go to ``csrc/flash_attention_wgmma.cu`` (wgmma on the tensor
-cores, K/V by TMA, P split into two terms of the input type), f32 to
-``csrc/flash_attention.cu`` (f32 FMAs on the CUDA cores).  Both are built
-for head dims 64, 128, 192 and 256; any other D up to 256 is padded with
-zero columns to the next of those (:func:`pad_head_dim`).  A head dim past
-256, in any of the three types, goes to ``csrc/flash_attention_wide.cu``
-(f32 FMAs on the CUDA cores, the output columns split over the grid),
-unpadded.  The plain torch version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`.
+Which kernel takes a call, by head dim D and input type:
+
+- D up to 256: bf16 and f16 ``csrc/flash_attention_wgmma.cu`` (wgmma on
+  the tensor cores, K/V by TMA, P split into two terms of the input type),
+  f32 ``csrc/flash_attention.cu`` (f32 FMAs on the CUDA cores); both built
+  for D 64, 128, 192 and 256.
+- D in (256, 512]: bf16 and f16 ``csrc/flash_attention_wgmma_wide.cu``
+  (the same numerics, the D columns split between two consumer warpgroups
+  that share each score), f32 ``csrc/flash_attention_wide.cu`` (mma.sync
+  on the tensor cores, each f32 product as three TF32 ones, K/V by TMA);
+  built for D 384 and 512.
+- D past 512, any of the three types: ``csrc/flash_attention_wide.cu``,
+  the output columns in groups of 512 over the grid (each group's block
+  computes the scores over all of D).
+
+Any other D is padded with zero columns to the next built head dim
+(:func:`padded_head_dim`: the next of 64, 128, 192, 256, 384 and 512, past
+512 the next multiple of 512), one launch at the unpadded D's scale.  The
+plain torch version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations
 
@@ -25,29 +35,40 @@ from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# the head dims both kernels are built for; any other D up to the last is
-# padded to the next of them
+# the head dims the kernels are built for: up to 256 (MAX_HEAD_DIM) the
+# narrow kernels, then the wide ones; past the last, multiples of GROUP
 HEAD_DIMS = (64, 128, 192, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
-# dtype -> (library, its C launcher)
+WIDE_HEAD_DIMS = (384, 512)
+GROUP = WIDE_HEAD_DIMS[-1]
+# dtype -> (library, its C launcher), head dims up to MAX_HEAD_DIM
 _KERNELS = {torch.float32: ("flash_attention", "flash_attention_launch"),
             torch.bfloat16: ("flash_attention_wgmma",
                              "flash_attention_wgmma_launch"),
             torch.float16: ("flash_attention_wgmma",
                             "flash_attention_wgmma_f16_launch")}
-# dtype -> the wide kernel's C launcher (head dims past MAX_HEAD_DIM)
+# the same for head dims in (MAX_HEAD_DIM, GROUP]
 _WIDE = {torch.float32: ("flash_attention_wide",
                          "flash_attention_wide_launch"),
-         torch.bfloat16: ("flash_attention_wide",
-                          "flash_attention_wide_bf16_launch"),
-         torch.float16: ("flash_attention_wide",
-                         "flash_attention_wide_f16_launch")}
+         torch.bfloat16: ("flash_attention_wgmma_wide",
+                          "flash_attention_wgmma_wide_launch"),
+         torch.float16: ("flash_attention_wgmma_wide",
+                         "flash_attention_wgmma_wide_f16_launch")}
+# and past GROUP, in groups of GROUP output columns
+_GROUPED = {torch.float32: ("flash_attention_wide",
+                            "flash_attention_wide_launch"),
+            torch.bfloat16: ("flash_attention_wide",
+                             "flash_attention_wide_bf16_launch"),
+            torch.float16: ("flash_attention_wide",
+                            "flash_attention_wide_f16_launch")}
 
 
 def kernel_of(dtype: torch.dtype, d: int) -> "tuple[str, str]":
     """(library, C launcher) that attention of ``dtype`` at head dim ``d``
     launches."""
-    return (_KERNELS if d <= MAX_HEAD_DIM else _WIDE)[dtype]
+    if d <= MAX_HEAD_DIM:
+        return _KERNELS[dtype]
+    return (_WIDE if d <= GROUP else _GROUPED)[dtype]
 
 
 def _launcher(dtype: torch.dtype, d: int):
@@ -59,11 +80,12 @@ def _launcher(dtype: torch.dtype, d: int):
 
 
 def padded_head_dim(d: int) -> int:
-    """The built head dim that a head dim of ``d`` (1 to 256) runs at
-    (``d`` itself past 256: the wide kernel takes any)."""
-    if d > MAX_HEAD_DIM:
-        return d
-    return next(w for w in HEAD_DIMS if w >= d)
+    """The built head dim that a head dim of ``d`` >= 1 runs at: the next of
+    ``HEAD_DIMS`` and ``WIDE_HEAD_DIMS``, past the last the next multiple of
+    ``GROUP``."""
+    if d > GROUP:
+        return -(-d // GROUP) * GROUP
+    return next(w for w in HEAD_DIMS + WIDE_HEAD_DIMS if w >= d)
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -95,12 +117,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel launch.
 
     ``bq`` and ``bk`` are kept for the reference kernel's signature alone:
-    the kernels work in tiles of 64 or 128 queries and 64 keys and mask a
-    ragged edge, so BH, Sq and Sk may be any sizes of at least 1.  A D up
-    to 256 that the kernels are not built for is padded with zero columns
-    (:func:`pad_head_dim`) and the output sliced back; a D past 256 takes
-    the wide kernel as it is.  q, k and v share one dtype (f32, bf16 or
-    f16), are contiguous and start on 16-byte boundaries."""
+    the kernels work in tiles of 48 to 128 queries and 32 to 128 keys and
+    mask a ragged edge, so BH, Sq and Sk may be any sizes of at least 1.  A
+    D that the kernels are not built for is padded with zero columns
+    (:func:`pad_head_dim`) and the output sliced back.  q, k and v share
+    one dtype (f32, bf16 or f16), are contiguous and start on 16-byte
+    boundaries."""
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, Sq, D), got shape {tuple(q.shape)}")
     bh, sq, d = q.shape
@@ -120,7 +142,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must start on a 16-byte boundary")
     qp, kp, vp = pad_head_dim(q, k, v)
     out = torch.empty_like(qp)
-    # both kernels take exponentials base 2 of scores scaled by log2(e); the
+    # the kernels take exponentials base 2 of scores scaled by log2(e); the
     # scale is the unpadded D's
     scale = float(np.float32(float(np.float32(1.0 / np.sqrt(d)))
                              * math.log2(math.e)))

@@ -141,22 +141,24 @@ def test_flash_attention_matches_reference_ragged(sq, sk, causal, dtype):
                                atol=tol)
 
 
-@pytest.mark.parametrize("d", [1, 16, 48, 100, 200])
+@pytest.mark.parametrize("d", [1, 16, 48, 100, 200, 300, 600])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_head_dim_is_the_same_function(d, causal):
-    """The wrapper's padding: the plain version on the padded q, k, v at
-    the unpadded D's scale, sliced back to D columns, equals the plain
-    version on the unpadded ones: the zero columns add exact zeros to
-    every q.k, and the products' sums are blocked otherwise at another
-    width, so rtol = atol = 1e-6, a few f32 steps of outputs below 1."""
+    """The wrapper's padding (below 256 to 64 .. 256; 300 to 384, 600 to
+    1024): the plain version on the padded q, k, v at the unpadded D's
+    scale, sliced back to D columns, equals the plain version on the
+    unpadded ones: the zero columns add exact zeros to every q.k, and the
+    products' sums are blocked otherwise at another width, so rtol = atol
+    = 1e-6, a few f32 steps of outputs below 1."""
     from repro_torch.kernels.flash_attention import (pad_head_dim,
                                                      padded_head_dim)
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 96, 80, d, seed=d))
     qp, kp, vp = pad_head_dim(q, k, v)
     dp = padded_head_dim(d)
-    assert dp in (64, 128, 192, 256) and dp >= d
+    assert dp in (64, 128, 192, 256, 384, 1024) and dp >= d
     assert qp.shape == (2, 96, dp) and vp.shape == (2, 80, dp)
     assert not qp[..., d:].any() and not kp[..., d:].any()
+    assert not vp[..., d:].any()
     scale = 1.0 / np.sqrt(d)
     got = TRef.flash_attention_ref(qp, kp, vp, causal=causal, scale=scale)
     assert not got[..., d:].any()
@@ -165,8 +167,39 @@ def test_padded_head_dim_is_the_same_function(d, causal):
         TRef.flash_attention_ref(q, k, v, causal=causal, scale=scale).numpy(),
         rtol=1e-6, atol=1e-6)
     # a built head dim is left as it is
-    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 8, 8, 128, seed=1))
-    assert all(a is b for a, b in zip(pad_head_dim(q, k, v), (q, k, v)))
+    for built in (128, 512):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(2, 8, 8, built, seed=1))
+        assert all(a is b for a, b in zip(pad_head_dim(q, k, v), (q, k, v)))
+
+
+@pytest.mark.parametrize("d,want", [(257, 384), (300, 384), (384, 384),
+                                    (385, 512), (512, 512), (513, 1024),
+                                    (640, 1024), (1000, 1024), (1025, 1536)])
+def test_padded_head_dim_and_kernel_past_256(d, want):
+    """Past 256 a head dim runs at 384 or 512 (the wide kernels' built
+    widths), past 512 at the next multiple of 512 (groups of 512 output
+    columns); bf16 and f16 take the wide wgmma kernel up to 512, f32 the
+    wide f32 kernel, and past 512 every type takes the wide f32
+    kernel's launcher of its type."""
+    from repro_torch.kernels.flash_attention import kernel_of, padded_head_dim
+    assert padded_head_dim(d) == want
+    wide = d <= 512
+    assert kernel_of(torch.float32, d) == ("flash_attention_wide",
+                                           "flash_attention_wide_launch")
+    assert kernel_of(torch.bfloat16, d) == (
+        ("flash_attention_wgmma_wide", "flash_attention_wgmma_wide_launch")
+        if wide else ("flash_attention_wide",
+                      "flash_attention_wide_bf16_launch"))
+    assert kernel_of(torch.float16, d) == (
+        ("flash_attention_wgmma_wide",
+         "flash_attention_wgmma_wide_f16_launch")
+        if wide else ("flash_attention_wide",
+                      "flash_attention_wide_f16_launch"))
+    # up to 256 the narrow kernels, as before
+    assert kernel_of(torch.float32, 256) == ("flash_attention",
+                                             "flash_attention_launch")
+    assert kernel_of(torch.bfloat16, 200) == ("flash_attention_wgmma",
+                                              "flash_attention_wgmma_launch")
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take():

@@ -47,3 +47,30 @@ def test_stop_children_leaves_no_process():
     assert any("time.sleep(600)" in c for c in got["before"]), got
     assert any("time.sleep(600)" in c for c in got["stopped"]), got
     assert got["after"] == [], got
+
+
+def test_attention_cases_match_the_kernels_line():
+    """Every attention case of the smoke has its entry in the ``kernels``
+    line, whose source is the library that ``kernel_of`` routes the case's
+    dtype and head dim to, and every attention entry has a case (so each
+    wide instance checked on the card names its own source)."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel_of
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    seen = set()
+    for _, _, _, hd, _, _, dt, _ in cs.ATTENTION_CASES:
+        name = cs.attention_kernel(dt, hd)
+        seen.add(name)
+        src, replaces = cs.KERNEL_SOURCES[name]
+        assert Path(src).stem == kernel_of(getattr(torch, dt), hd)[0], name
+        assert (ROOT / src).exists()
+        assert replaces == "src/repro/kernels/flash_attention.py:62"
+    assert seen == {n for n in cs.KERNEL_SOURCES
+                    if n.startswith("flash_attention")}

@@ -495,15 +495,18 @@ def test_flash_attention_bh_past_grid_y(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [257, 320, 512, 1000])
+@pytest.mark.parametrize("d", [257, 320, 384, 512, 640, 1000])
 @pytest.mark.parametrize("sq,sk,causal", [(256, 256, True), (300, 300, False),
                                           (8, 256, True), (80, 200, False)])
 def test_flash_attention_wide_head_dims_match_plain(cuda, dtype, d, sq, sk,
                                                     causal):
-    """Head dims past 256 (the wide kernel: P and every sum in f32, the
-    output columns split over the grid, a ragged last slice at 257, 320
-    and 1000) against the plain version, at the limits of the narrow
-    kernels' tests; one launch."""
+    """Head dims past 256 against the plain version, at the limits of the
+    narrow kernels' tests; one launch.  bf16 and f16 up to 512 take the
+    wide wgmma kernel (the scores shared by two warpgroups, P split), f32
+    and every type past 512 the wide f32 kernel (three TF32 products for
+    each f32 one, P and every sum in f32; past 512 the output columns in
+    groups of 512 over the grid);
+    257 and 320 run padded to 384, 640 and 1000 to 1024."""
     q, k, v = (a.to(dtype) for a in _qkv(3, sq, sk, d, seed=d + sq))
     want = TRef.flash_attention_ref(q, k, v, causal=causal)
     before = _build.LAUNCHES["flash_attention"]
@@ -519,7 +522,7 @@ def test_flash_attention_wide_head_dims_match_plain(cuda, dtype, d, sq, sk,
 
 def test_flash_attention_raises_outside_the_rules(cuda):
     """A dtype no kernel is built for raises on the card, at a head dim
-    past 256 too; nothing launches.  D 320 launches the wide kernel."""
+    past 256 too; nothing launches.  D 320 launches a wide kernel."""
     before = _build.LAUNCHES["flash_attention"]
     for d in (64, 320):
         q, k, v = (a.to(cuda).double() for a in _qkv(2, 256, 256, d, seed=0))

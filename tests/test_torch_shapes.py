@@ -190,7 +190,7 @@ def test_fwht_bitwise(d, rows, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [320, 512])
 def test_flash_attention_past_head_dim_256(d, causal, dtype):
-    """Head dims past 256 (the port's wide kernel on the card) against the
+    """Head dims past 256 (the port's wide kernels on the card) against the
     reference's Pallas kernel in interpret mode, at 256 x 256, at the
     reference test's tolerances: 2e-4 for f32, 3e-2 for bf16 (rounded to
     the output type separately on each side)."""
