@@ -24,12 +24,13 @@ nothing of the JAX package.  The script
    of it spilled, and fails unless the encode's and the single decode's
    main instances move their streams by 128-bit loads and stores and no
    instance of the four lattice libraries spilled, and unless every
-   instance of the attention kernels (f32 at head dims 64, 128, 192 and
-   256; the wgmma kernel in bf16 and f16 at each; the wide wgmma kernel in
-   bf16 and f16 at 384 and 512; the wide f32 kernel in f32 at 384 and 512
-   and in each type past 512) spilled nothing, every instance of the two
-   wgmma kernels shows HGMMA and UTMALDG, and every instance of the wide
-   f32 kernel HMMA and UTMALDG.  Then the shapes the reference's kernels
+   instance of the attention kernels (the wgmma kernel in bf16 and f16 at
+   head dims 16, 32, 64, 128, 192 and 256; the wide wgmma kernel in bf16
+   and f16 at 384 and 512; the f32 TF32 wgmma kernel at 64; the mma.sync
+   kernel in f32 at 128, 192, 256, 384 and 512 and in each type past 512)
+   spilled nothing, every instance of the three wgmma kernels shows HGMMA
+   and UTMALDG, and every instance of the mma.sync kernel HMMA and
+   UTMALDG.  Then the shapes the reference's kernels
    do not take (``shape_kernel_checks``), each bitwise against its plain
    version at full width and timed: the encode, the single decode and the
    batched decode (16 senders) at q = 2 (1-bit colors), 3 and 12 (not
@@ -220,18 +221,21 @@ nothing of the JAX package.  The script
    sequences of 4,096, the batch cut from 256; f32, causal and not), and
    granite-moe-1b-a400m training (16 heads x 64, K/V from 8 KV heads, 8
    sequences of ``train_4k``'s 4,096 tokens, the batch cut from 256 to 8;
-   f32, causal and not, and f16, causal); then head dims the wrapper pads
-   (16, every smoke config's, in bf16; 48 in f32) and shapes the
-   reference sends to its plain version (Sq = Sk = 1,000, causal, and 8
-   queries over 4,096 keys, at qwen3-32b's heads in bf16), and head dims
+   f32, causal and not, and f16, causal); then small head dims (16, every
+   smoke config's, and 32 in bf16, both built; 48 in f32, padded to 64)
+   and shapes the reference sends to its plain version (Sq = Sk = 1,000,
+   causal, and 8 queries over 4,096 keys, at qwen3-32b's heads in bf16),
+   and head dims
    past 256 (16 heads, one sequence of 4,096, causal): 512 in bf16, f16
    and f32, and 320 in bf16 (padded to 384).  The bf16 and the f16 cases
-   up to head dim 256 are the wgmma kernel's paths, the f32 ones the
-   CUDA-core kernel's; past 256 the bf16 and f16 cases take the wide
-   wgmma kernel (``csrc/flash_attention_wgmma_wide.cu``, one path for
-   each case) and the f32 case the wide f32 kernel
-   (``csrc/flash_attention_wide.cu``: three TF32 passes on the tensor
-   cores).  It times the kernel, holds its output on the first 2 of BH
+   up to head dim 256 are the wgmma kernel's paths; the f32 ones up to 64
+   the f32 wgmma kernel's (``csrc/flash_attention.cu``), at 256 and 512
+   the mma.sync kernel's (``csrc/flash_attention_wide.cu``), each width
+   its own path, all three TF32 products on the tensor cores; past 256 the
+   bf16 and f16 cases take the wide wgmma kernel
+   (``csrc/flash_attention_wgmma_wide.cu``, one path for each case).  It times
+   the kernel (one call; under 5 ms also ``device_ms``, events around
+   R >= 20 back-to-back calls), holds its output on the first 2 of BH
    against the plain version (which holds a (BH, Sq, Sk) f32 score
    tensor, so it runs 2 of BH at a time), times the plain version over
    all of BH in chunks of 2, and times ``scaled_dot_product_attention`` on
@@ -239,10 +243,12 @@ nothing of the JAX package.  The script
    first of its backends that takes the shape, named), printing SDPA's
    own share of the kernel's limit against the plain version as
    information.  The bound counts the unpadded head dim's operations, at
-   the tensor cores' bf16 rate for bf16 and f16, at the CUDA cores' f32
-   rate for f32 up to head dim 256, and past 256 (where the f32 kernel
-   computes each product as three TF32 ones) at the lower of that and
-   three TF32 operations for each at the TF32 rate;
+   the tensor cores' bf16 rate for bf16 and f16 (with, as information,
+   the scores a second and ``exp_bound_ms``, one exponential a score at
+   16 a clock an SM at the card's top SM clock), and for f32, whose kernel
+   computes each product as three TF32 ones, three TF32 operations for
+   each at the TF32 rate, the least time at f32 precision (the CUDA
+   cores' f32 rate, a looser bound, as ``f32_rate_bound_ms``);
 13. runs the paper's algorithms (``repro_torch.core``) on the card: at
    d = 277,845,504 with 4 machines (``base + 0.02 N(0,1)``, as the clients
    of round A), Algorithm 3 (star, q = 16), Algorithm 4 (tree, m = 4), the
@@ -340,6 +346,9 @@ KERNEL_SOURCES = {
              "src/repro/kernels/fwht.py:95"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wide_f32_d256": (
+        "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        "src/repro/kernels/flash_attention.py:62"),
     "flash_attention_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:62"),
@@ -422,9 +431,10 @@ ATTENTION_CASES = (
      (True,)),
     ("recurrentgemma-9b train_4k", 16, 1, 256, 4_096, 8, "float32",
      (True, False)),
-    # padded to D 64 in the wrapper: every smoke config's width, and one
-    # that no config has
+    # small head dims: every smoke config's width and 32, both built in
+    # bf16, and one that no config has (f32, padded to 64 in the wrapper)
     ("smoke width (D 16)", 4, 2, 16, 4_096, 8, "bfloat16", (True,)),
+    ("head dim 32", 8, 4, 32, 4_096, 8, "bfloat16", (True,)),
     ("padded D 48", 16, 8, 48, 4_096, 8, "float32", (True,)),
     # shapes the reference sends to its plain version, at qwen3-32b's heads
     ("qwen3-32b heads, Sq = Sk = 1,000", 64, 8, 128, 1_000, 1, "bfloat16",
@@ -438,29 +448,37 @@ ATTENTION_CASES = (
     ("head dim 512, 16 heads", 16, 16, 512, 4_096, 1, "float16", (True,)),
     ("head dim 320, 16 heads", 16, 16, 320, 4_096, 1, "bfloat16", (True,)),
 )
-# ops.flash_attention's kernel for each dtype (one launch count for all);
-# bf16 and f16 are two instances of the wgmma kernel, with their own
-# entries in the ``kernels`` line
+# ops.flash_attention's kernel for each dtype up to head dim 256, f32 up
+# to 64 (one launch count for all); bf16 and f16 are two instances of the
+# wgmma kernel, with their own entries in the ``kernels`` line; f32 takes
+# the TF32 wgmma kernel, whose entry keeps the name ``flash_attention``
 ATTENTION_KERNEL = {"bfloat16": "flash_attention_wgmma",
                     "float32": "flash_attention",
                     "float16": "flash_attention_wgmma_f16"}
-# past head dim 256: the wide kernels, one entry for each (dtype, head dim)
-# checked: bf16 and f16 take the wide wgmma kernel, f32 the wide f32 one
-# (three TF32 passes on the tensor cores)
+# past head dim 256 (f32: 64) the wide kernels, one entry for each (dtype,
+# head dim) checked: bf16 and f16 take the wide wgmma kernel, f32 the
+# mma.sync one (three TF32 passes on the tensor cores)
 ATTENTION_WIDE = {("bfloat16", 512): "flash_attention_wgmma_wide",
                   ("float16", 512): "flash_attention_wgmma_wide_f16",
                   ("bfloat16", 320): "flash_attention_wgmma_wide_d320",
+                  ("float32", 256): "flash_attention_wide_f32_d256",
                   ("float32", 512): "flash_attention_wide_f32"}
 
 
 def attention_kernel(dt: str, hd: int) -> str:
     """The ``kernels``-line entry of attention in ``dt`` at head dim hd."""
-    return ATTENTION_WIDE[(dt, hd)] if hd > 256 else ATTENTION_KERNEL[dt]
+    narrow = 64 if dt == "float32" else 256
+    return ATTENTION_WIDE[(dt, hd)] if hd > narrow else ATTENTION_KERNEL[dt]
 # the wgmma kernels' P.V takes two products (P split into hi and lo), so
 # their tensor cores issue 1.5x the useful operations
 BF16_ISSUED = 1.5
-# the wide f32 kernel issues three TF32 products for each f32 one
+# the f32 kernel issues three TF32 products for each f32 one
 TF32_ISSUED = 3
+# exponentials a clock an SM (the special-function units; Shah et al.,
+# FlashAttention-3, 2024: 3.9 TFLOP/s of them on an H100 SXM)
+EXP_PER_CLOCK_SM = 16
+# attention's cases under this many ms also get a ``device_ms``
+DEVICE_MS_UNDER = 5.0
 # (rtol, atol) of the kernel against its plain version.  Both compute in
 # f32 and round once to the output type, so bf16 outputs differ by at most
 # one bf16 step, 2^-7 of the value (rtol 1e-2 leaves a margin of 1.28),
@@ -588,28 +606,33 @@ def ptxas_spills(report: str) -> dict:
 
 def attention_sass(_build) -> dict:
     """Every instance of the attention kernels, one per (input type, head
-    dim): the two wgmma kernels' must show HGMMA (wgmma) and UTMALDG (TMA
-    loads) in their SASS, the wide f32 kernel's HMMA (mma.sync) and
-    UTMALDG, and none of the four libraries may have spilled
-    (0 spill-store bytes in ptxas's report of this build, where this
-    process built it, and no local memory in ``cuobjdump -res-usage``)."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, WIDE_HEAD_DIMS
+    dim): the three wgmma kernels' (the f32 one in TF32) must show HGMMA
+    (wgmma) and UTMALDG (TMA loads) in their SASS, the mma.sync kernel's
+    HMMA and UTMALDG, and none of the four libraries may have spilled (0
+    spill-store bytes in ptxas's report of this build, where this process
+    built it, and no local memory in ``cuobjdump -res-usage``)."""
+    from repro_torch.kernels.flash_attention import (F32_HEAD_DIMS,
+                                                     F32_WGMMA_HEAD_DIM,
+                                                     GROUP, HEAD_DIMS,
+                                                     WIDE_HEAD_DIMS)
 
     halves = ("13__nv_bfloat16", "6__half")
-    # by their mangled names: the f32 kernel at each built head dim, the
-    # wgmma kernel at each (input type, head dim), the wide wgmma kernel at
-    # each (input type, half of the head dim), the wide f32 kernel at each
-    # (input type, 128-column groups of its block: 3 at D 384, f32 only; 4
-    # at 512 and past it)
+    # by their mangled names: the f32 wgmma kernel (D 64 alone), the bf16
+    # and f16 one at each (input type, head dim), the wide wgmma kernel at
+    # each (input type, half of the head dim), the mma.sync kernel at each
+    # (input type, output columns of its block: f32 at each of its head
+    # dims, every type at GROUP past them)
     instances = {
-        "flash_attention": [f"flash_fwd_kernelILi{d}E" for d in HEAD_DIMS],
+        "flash_attention": ["flash_tf32_kernel"],
         "flash_attention_wgmma": [f"flash_wgmma_kernelI{t}Li{d}E"
                                   for t in halves for d in HEAD_DIMS],
         "flash_attention_wgmma_wide": [
             f"flash_wgmma_wide_kernelI{t}Li{d // 2}E"
             for t in halves for d in WIDE_HEAD_DIMS],
-        "flash_attention_wide": ["flash_wide_kernelIfLi3E"] + [
-            f"flash_wide_kernelI{t}Li4E" for t in ("f",) + halves]}
+        "flash_attention_wide": [
+            f"flash_wide_kernelIfLi{d}E" for d in F32_HEAD_DIMS
+            if d > F32_WGMMA_HEAD_DIM] + [
+            f"flash_wide_kernelI{t}Li{GROUP}E" for t in halves]}
     out = {}
     for lib, names in instances.items():
         parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
@@ -621,15 +644,15 @@ def attention_sass(_build) -> dict:
             check(len(found) == 1, f"{lib}: {len(found)} functions named "
                   f"like {inst} in the SASS")
             fn = found[0]
+            # the products and loads, then (information) what a score costs
+            # beside them: exponentials, conversions, shuffles, barriers
             c = sass_counts(bodies[fn], ("HGMMA", "HMMA", "UTMALDG",
-                                         "WARPGROUP.DEPBAR"))
+                                         "WARPGROUP.DEPBAR", "MUFU.EX2",
+                                         "F2FP", "SHFL", "BAR"))
             c.update(usage.get(fn, {}), spill_store_bytes=spills.get(fn))
-            if lib.startswith("flash_attention_wgmma"):
-                check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
-                      f"{fn}'s SASS has no HGMMA or no UTMALDG: {c}")
-            if lib == "flash_attention_wide":
-                check(c["HMMA"] > 0 and c["UTMALDG"] > 0,
-                      f"{fn}'s SASS has no HMMA or no UTMALDG: {c}")
+            mma = "HMMA" if lib == "flash_attention_wide" else "HGMMA"
+            check(c[mma] > 0 and c["UTMALDG"] > 0,
+                  f"{fn}'s SASS has no {mma} or no UTMALDG: {c}")
             check(c.get("local") == 0 and not c["spill_store_bytes"],
                   f"{lib} {fn} spilled: {c}")
             out[inst] = c
@@ -4243,7 +4266,8 @@ def attention_inputs(torch, heads: int, kv_heads: int, hd: int, sq: int,
 
 def attention_path(torch, ops, _build, cases_in, seed: int):
     """One main path: every ``ops.flash_attention`` call of ``cases_in`` at
-    the full shapes (one kept, then the timed ones), with the counts set to
+    the full shapes (one kept, then the timed ones: one call at a time, and
+    under ``DEVICE_MS_UNDER`` ms also back to back), with the counts set to
     0 before it and read after it."""
     cases = []
     _build.reset_launch_counts()
@@ -4255,10 +4279,15 @@ def attention_path(torch, ops, _build, cases_in, seed: int):
                                    dtype, seed)
         for causal in causals:
             o = ops.flash_attention(q, k, v, causal=causal)
-            ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v,
-                                                            causal=causal))
+            def call():
+                return ops.flash_attention(q, k, v, causal=causal)
+            ms = cuda_ms(torch, call)
+            extra = {}
+            if ms < DEVICE_MS_UNDER:
+                extra["device_ms"], extra["device_reps"] = device_ms(torch,
+                                                                     call)
             cases.append(dict(label=label, dtype=dt, causal=causal,
-                              qkv=(q, k, v), out=o, ms=ms))
+                              qkv=(q, k, v), out=o, ms=ms, **extra))
         del q, k, v
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
@@ -4276,20 +4305,32 @@ def attention_pairs(sq: int, sk: int, causal: bool) -> int:
     return full * sk + part * (part + 1) // 2
 
 
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(out) * 1e6
+
+
 def attention(torch, seed: int):
-    """The attention phase: one main path for each kernel entry, the bf16
-    and the f16 cases (two instances of the wgmma kernel), the f32 cases
-    (the CUDA-core kernel) and each case past head dim 256 (bf16 and f16 at
-    D 512 and bf16 at D 320 the wide wgmma kernel, f32 at D 512 the wide
-    f32 kernel), each driven with the counts set to 0 just before it
-    and read just after.  The comparison with the plain version reuses the kept
-    outputs and launches nothing.  Returns {kernel: (kernels-line entry,
-    launches)}."""
+    """The attention phase: one main path for each kernel entry: the bf16
+    and the f16 cases up to head dim 256 (two instances of the wgmma
+    kernel), the f32 cases up to 64 (the f32 wgmma kernel), at 256 and at
+    512 (the mma.sync kernel), and the bf16 and f16 cases past 256 (the
+    wide wgmma kernel, D 512 and, in bf16, D 320), each driven with the
+    counts set to 0 just before it and read just after.  The comparison
+    with the plain version reuses the kept outputs and launches nothing.
+    Returns {kernel: (kernels-line entry, launches)}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import _build, ops, ref
 
     torch.cuda.empty_cache()
+    # exponentials a ms: the special-function units of every SM
+    exp_per_ms = (EXP_PER_CLOCK_SM * sm_clock_hz() / 1e3
+                  * torch.cuda.get_device_properties(0).multi_processor_count)
     out = {}
     groups = {}
     for c in ATTENTION_CASES:
@@ -4360,23 +4401,29 @@ def attention(torch, seed: int):
             lib_ms = cuda_ms(torch, library)
             elt = q.element_size()
             # the unpadded head dim's operations, whatever width ran
-            useful = 4 * bh * hd * attention_pairs(sq, sk, causal)
-            # f16 has bf16's dense tensor-core rate
-            rate = F32_OPS_PER_S if dt == "float32" else BF16_OPS_PER_S
+            scores = bh * attention_pairs(sq, sk, causal)
+            useful = 4 * hd * scores
             nbytes = 2 * bh * (sq + sk) * hd * elt
-            b, by = bound(nbytes, useful, rate)
             extra = {}
             if dt != "float32":
+                # f16 has bf16's dense tensor-core rate
+                b, by = bound(nbytes, useful, BF16_OPS_PER_S)
                 extra["issued_bound_ms"], _ = bound(
-                    nbytes, BF16_ISSUED * useful, rate)
-            elif hd > 256:
-                # the wide f32 kernel computes each f32 product as three
-                # TF32 ones on the tensor cores, within f32's tolerance:
-                # the least time at f32 precision is the lower of that and
-                # the CUDA cores' f32 rate (kept as information)
-                extra["f32_rate_bound_ms"] = b
-                b, by = min((b, by), bound(nbytes, TF32_ISSUED * useful,
-                                           TF32_OPS_PER_S))
+                    nbytes, BF16_ISSUED * useful, BF16_OPS_PER_S)
+                # one exponential a score: what bounds a small head dim
+                extra["exp_bound_ms"] = scores / exp_per_ms
+                extra["scores_per_s"] = scores / c["ms"] * 1e3
+            else:
+                # the f32 kernel computes each f32 product as three TF32
+                # ones on the tensor cores, within f32's tolerance: the
+                # least time at f32 precision is the lower of that and the
+                # CUDA cores' f32 rate (kept as information)
+                f32_rate = bound(nbytes, useful)
+                extra["f32_rate_bound_ms"] = f32_rate[0]
+                b, by = min(bound(nbytes, TF32_ISSUED * useful,
+                                  TF32_OPS_PER_S), f32_rate)
+            if "device_ms" in c:
+                extra["device_share_of_bound"] = b / c["device_ms"]
             c.update(kernel=name, shape=f"BH={bh}, Sq={sq}, Sk={sk}, "
                      f"D={hd}", plain_ms=plain_ms, bound_ms=b, bound_by=by,
                      share_of_bound=b / c["ms"], library_ms=lib_ms,

@@ -2,17 +2,18 @@
 // tensor cores (sm_90a): wgmma for both products, K/V tiles by TMA.
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
-// (_flash_kernel), for bf16 and f16 inputs (f32 inputs take
-// flash_attention.cu).  For each (batch*head, query row) it computes
+// (_flash_kernel), for bf16 and f16 inputs up to head dim 256 (f32 inputs
+// take flash_attention_wide.cu).  For each (batch*head, query row) it
+// computes
 //   out = softmax(scale * q . K^T, masked) . V,   scale = float32(1/sqrt(D)),
 // with the products, the scores, the running max and sum and the
 // accumulator in f32 and out = acc / max(l, 1e-30) rounded to the input
 // type.  Where causal, keys past the query's position (both counted from
-// 0) take no part, and neither do keys at or past Sk.  D is 64, 128, 192
-// or 256 (the wrapper pads any other D <= 256 with zero columns and passes
-// the scale of the unpadded D); BH, Sq and Sk are any sizes >= 1: the
-// grid is one-dimensional over (query tile, bh), and a ragged tile of
-// queries or keys is masked.
+// 0) take no part, and neither do keys at or past Sk.  D is 16, 32, 64,
+// 128, 192 or 256 (the wrapper pads any other D <= 256 with zero columns
+// and passes the scale of the unpadded D); BH, Sq and Sk are any sizes
+// >= 1: the grid is one-dimensional over (query tile, bh), and a ragged
+// tile of queries or keys is masked.
 //
 // Bound on this card: operations.  Per query row and visible key it does
 // 2 D multiply-adds (q.k and p.v), thousands per byte read at the sequence
@@ -30,27 +31,32 @@
 // Design.  One block per (bh, 128 query rows), 384 threads: warpgroup 0
 // is the producer (one thread issues every TMA load; setmaxnreg drops it
 // to 24 registers), warpgroups 1 and 2 are consumers of 64 rows each
-// (setmaxnreg 240).  Q (128 x D) is loaded once; 64-key K and V tiles go
-// through a ring of STAGES shared-memory stages each, signalled by
-// mbarriers (full: the TMA's bytes arrived; empty: all 8 consumer warps are
-// done with it).  Tiles are stored as D/64 column blocks of 128-byte rows
-// with the 128-byte swizzle, one TMA box each (a box's inner extent is at
-// most 128 bytes), and the wgmma descriptors walk the same blocks.  Per key
-// tile a consumer warpgroup runs S = Q.K^T (m64n64k16, A and B K-major from
+// (setmaxnreg 240).  Q (128 x D) is loaded once; K and V tiles of BK keys
+// (128 up to D 64, where a tile's fixed costs (barrier waits, the wgmma
+// fence, commit and wait, the row max's shuffles) weigh most against its
+// work, 64 above) go through a ring of STAGES shared-memory stages each,
+// signalled by mbarriers (full: the TMA's bytes arrived; empty: all 8
+// consumer warps are done with it).  Tiles are stored as column blocks of
+// min(D, 64) columns, rows of RB = 32, 64 or 128 bytes with the swizzle of
+// that width, one TMA box each (a box's inner extent is at most 128
+// bytes), and the wgmma descriptors walk the same blocks.  Per key tile a
+// consumer warpgroup runs S = Q.K^T (m64nBKk16, A and B K-major from
 // shared memory), the online softmax on the accumulator fragments (row max
 // and sum over the quad of lanes that shares a row; a masked key gets
 // p = 0, the running max starts at -1e30), then O = O.alpha + P_hi.V +
 // P_lo.V (m64nDk16, A = P in registers, taken from the S fragments as they
-// lie, B = V MN-major from shared memory).  S of tile t and P.V of tile
+// lie, B = V MN-major from shared memory); a warp whose rows' maxima all
+// stayed (alpha exactly 1) leaves O as it is.  S of tile t and P.V of tile
 // t - 1 are issued together, so the softmax of tile t runs while the
-// tensor cores do P.V; the two consumer warpgroups overlap each other
-// too.  At D = 256 that keeps O (128 registers a thread), S of one tile
-// and P_hi, P_lo of the other live at once, and ptxas still fits them in
-// the 240 without spilling.  TMA zero-fills rows past S, and those keys
-// are masked (only tiles at the diagonal or the ragged end test masks).  Key tiles wholly above a block's rows are not
-// loaded, and those above a warpgroup's rows not computed; in causal mode
-// the blocks with the most key tiles start first.  No allocation; the
-// launch goes on the caller's stream.
+// tensor cores do P.V; the two consumer warpgroups overlap each other too,
+// and up to D 64 take turns to issue (ping-pong).  At D = 256 that keeps
+// O (128 registers a thread), S of one tile and P_hi, P_lo of the other
+// live at once, and ptxas still fits them in the 240 without spilling.
+// TMA zero-fills rows past S, and those keys are masked (only tiles at
+// the diagonal or the ragged end test masks).  Key tiles wholly above a
+// block's rows are not loaded, and those above a warpgroup's rows not
+// computed; in causal mode the blocks with the most key tiles start
+// first.  No allocation; the launch goes on the caller's stream.
 #include <climits>
 
 #include "flash_attention_wgmma.cuh"
@@ -58,12 +64,14 @@
 namespace {
 
 constexpr int BQ = 128;            // query rows per block
-constexpr int BK = 64;             // keys per tile
 constexpr int THREADS = 384;       // producer warpgroup + 2 consumers
 constexpr float NEG = -1e30f;
 
 template <int D>
 struct Layout {
+  static constexpr int BK = D <= 64 ? 128 : 64;       // keys per tile
+  static constexpr int RB = D < 64 ? 2 * D : 128;     // bytes of a row
+  static constexpr int CB = D < 64 ? 1 : D / 64;      // column blocks
   static constexpr int STAGES = D <= 128 ? 3 : 2;
   static constexpr uint32_t Q_BYTES = BQ * D * 2;
   static constexpr uint32_t TILE_BYTES = BK * D * 2;   // one K or V stage
@@ -88,8 +96,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    T* __restrict__ out, int sq, int sk, float scale_log2,
                    int causal) {
   using L = Layout<D>;
-  constexpr int S = L::STAGES;
-  constexpr int CB = D / 64;       // 64-column blocks
+  constexpr int S = L::STAGES, BK = L::BK, RB = L::RB, CB = L::CB;
+  constexpr int KPB = RB / 32;     // k16 steps in a row of a block
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq_tile = base, sk_tile = base + L::K_OFF,
@@ -127,7 +135,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < CB; ++c)
-        tma_load(sq_tile + c * BQ * 128, &tq, bar_q, c * 64, q0, bh);
+        tma_load(sq_tile + c * BQ * RB, &tq, bar_q, c * 64, q0, bh);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % S;
         const uint32_t ph = (kt / S) & 1;
@@ -137,13 +145,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(full_k + 8 * s, L::TILE_BYTES);
 #pragma unroll
         for (int c = 0; c < CB; ++c)
-          tma_load(kdst + c * BK * 128, &tk, full_k + 8 * s, c * 64, kt * BK,
+          tma_load(kdst + c * BK * RB, &tk, full_k + 8 * s, c * 64, kt * BK,
                    bh);
         mbar_wait(empty_v + 8 * s, ph ^ 1);
         mbar_expect_tx(full_v + 8 * s, L::TILE_BYTES);
 #pragma unroll
         for (int c = 0; c < CB; ++c)
-          tma_load(vdst + c * BK * 128, &tv, full_v + 8 * s, c * 64, kt * BK,
+          tma_load(vdst + c * BK * RB, &tv, full_v + 8 * s, c * 64, kt * BK,
                    bh);
       }
     }
@@ -157,15 +165,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = q0 + 64 * cw + 16 * warp + lane / 4;
     const int c0 = 2 * (lane % 4);
     const int wg_first = q0 + 64 * cw, wg_last = wg_first + 63;
-    const uint32_t qa = sq_tile + cw * 64 * 128;
+    const uint32_t qa = sq_tile + cw * 64 * RB;
 
-    float o[D / 2], sc[32];
+    float o[D / 2], sc[BK / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
-    uint32_t phi[16], plo[16];
+    uint32_t phi[BK / 4], plo[BK / 4];
 
     // S = Q . K^T of key tile kt, issued and committed
     auto issue_qk = [&](int kt) {
@@ -174,9 +182,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;   // 16 columns of a block
-        wgmma_ss_n64<T>(sc, desc_k_major(qa + (kk / 4) * BQ * 128 + off),
-                     desc_k_major(kb + (kk / 4) * BK * 128 + off), kk > 0);
+        const uint32_t off = (kk % KPB) * 32;   // 16 columns of a block
+        const uint64_t a = desc_k_major<RB>(qa + (kk / KPB) * BQ * RB + off),
+                       b = desc_k_major<RB>(kb + (kk / KPB) * BK * RB + off);
+        if constexpr (BK == 128)
+          wgmma_ss_n128<T>(sc, a, b, kk > 0);
+        else
+          wgmma_ss_n64<T>(sc, a, b, kk > 0);
       }
       wgmma_commit();
     };
@@ -186,8 +198,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t b = desc_mn_major(vb + kk * 16 * 128, BK * 128);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t b = desc_mn_major<RB>(vb + kk * 16 * RB, BK * RB);
         wgmma_pv<T, D>(o, phi + 4 * kk, b);
         wgmma_pv<T, D>(o, plo + 4 * kk, b);
       }
@@ -205,19 +217,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         softmax_tile<false>(sc, m, l, alpha, r0, k0 + c0, sk, causal,
                             scale_log2);
     };
-    // O scaled by alpha, then P (in sc) as wgmma A fragments: for keys
-    // 16 kk .. 16 kk + 15 the registers are (rows r0, r0 + 8) x (S column
-    // groups 2 kk, 2 kk + 1), which is where the S accumulator holds them
+    // O scaled by alpha (where a row of the warp's has a new max: alpha 1
+    // would leave every bit as it is), then P (in sc) as wgmma A
+    // fragments: for keys 16 kk .. 16 kk + 15 the registers are (rows r0,
+    // r0 + 8) x (S column groups 2 kk, 2 kk + 1), which is where the S
+    // accumulator holds them
     auto rescale_and_pack = [&]() {
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j + 0] = __fmul_rn(o[4 * j + 0], alpha[0]);
-        o[4 * j + 1] = __fmul_rn(o[4 * j + 1], alpha[0]);
-        o[4 * j + 2] = __fmul_rn(o[4 * j + 2], alpha[1]);
-        o[4 * j + 3] = __fmul_rn(o[4 * j + 3], alpha[1]);
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 0] = __fmul_rn(o[4 * j + 0], alpha[0]);
+          o[4 * j + 1] = __fmul_rn(o[4 * j + 1], alpha[0]);
+          o[4 * j + 2] = __fmul_rn(o[4 * j + 2], alpha[1]);
+          o[4 * j + 3] = __fmul_rn(o[4 * j + 3], alpha[1]);
+        }
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -231,13 +247,30 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // warpgroup's rows (in causal order, every later one too) is waited for
     // and released only
     const int n_live = causal ? min(n_kt, wg_last / BK + 1) : n_kt;
+    // Ping-pong where a tile is as long as the block (BK = BQ, D <= 64:
+    // both warpgroups have the same live tiles): the two take turns to
+    // issue their products, so that one's softmax runs while the other's
+    // products hold the tensor cores.  Warpgroup c's turn is named barrier
+    // 4 + c over both; warpgroup 0 goes first, and takes one turn more at
+    // the end, so that every arrival is waited for.  (With 64-key tiles the
+    // turns measured no faster.)
+    constexpr bool PP = BK == BQ;
+    auto my_turn = [&]() {
+      if constexpr (PP) named_sync(4 + cw, 256);
+    };
+    auto pass_turn = [&]() {
+      if constexpr (PP) named_arrive(5 - cw, 256);
+    };
+    if (PP && cw == 1) named_arrive(4, 256);
 
     // Per tile kt: S_kt = Q.K_kt^T and O += P_{kt-1}.V_{kt-1} go to the
     // tensor cores together; the softmax of S_kt runs while P.V does.  No
     // wgmma is issued under a branch, so that ptxas keeps them pipelined.
     mbar_wait(bar_q, 0);
     mbar_wait(full_k, 0);
+    my_turn();
     issue_qk(0);
+    pass_turn();
     wgmma_wait<0>();
     fence_regs(sc);
     if (lane == 0) mbar_arrive(empty_k);
@@ -246,9 +279,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kt = 1; kt < n_live; ++kt) {
       const int s = kt % S, sp = (kt - 1) % S;
       mbar_wait(full_k + 8 * s, (kt / S) & 1);
-      issue_qk(kt);
       mbar_wait(full_v + 8 * sp, ((kt - 1) / S) & 1);
+      my_turn();
+      issue_qk(kt);
       issue_pv(kt - 1);
+      pass_turn();
       wgmma_wait<1>();
       fence_regs(sc);
       if (lane == 0) mbar_arrive(empty_k + 8 * s);
@@ -263,11 +298,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     {
       const int sp = (n_live - 1) % S;
       mbar_wait(full_v + 8 * sp, ((n_live - 1) / S) & 1);
+      my_turn();
       issue_pv(n_live - 1);
+      pass_turn();
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(empty_v + 8 * sp);
     }
+    if (PP && cw == 0) named_sync(4, 256);
     for (int kt = n_live; kt < n_kt; ++kt) {
       const int s = kt % S;
       const uint32_t ph = (kt / S) & 1;
@@ -306,8 +344,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   if (enc == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   CUtensorMap tq, tk, tv;
   CUresult r = make_map<T>(enc, &tq, q, bh, sq, D, BQ);
-  if (r == CUDA_SUCCESS) r = make_map<T>(enc, &tk, k, bh, sk, D, BK);
-  if (r == CUDA_SUCCESS) r = make_map<T>(enc, &tv, v, bh, sk, D, BK);
+  if (r == CUDA_SUCCESS)
+    r = make_map<T>(enc, &tk, k, bh, sk, D, Layout<D>::BK);
+  if (r == CUDA_SUCCESS)
+    r = make_map<T>(enc, &tv, v, bh, sk, D, Layout<D>::BK);
   if (r != CUDA_SUCCESS) return -(int)r;
   const size_t smem = Layout<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
@@ -327,6 +367,10 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
   if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
+    case 16:
+      return launch<T, 16>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
+    case 32:
+      return launch<T, 32>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
     case 64:
       return launch<T, 64>(q, k, v, out, bh, sq, sk, causal, scale_log2, st);
     case 128:
@@ -343,8 +387,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous bf16
-// (f16 for the _f16 launcher) on 16-byte boundaries; d: 64, 128, 192 or
-// 256; bh, sq, sk >= 1 (bh times the query tiles of 128 rows at most
+// (f16 for the _f16 launcher) on 16-byte boundaries; d: 16, 32, 64, 128,
+// 192 or 256; bh, sq, sk >= 1 (bh times the query tiles of 128 rows at most
 // INT_MAX); scale_log2 = f32(1/sqrt(D)) * log2(e), D the head dim before
 // any padding.  Returns the CUDA error code of the launch (0 = launched),
 // or minus the driver's code where a tensor map could not be made; any

@@ -1,11 +1,13 @@
 // Pieces shared by the flash-attention kernels on Hopper (sm_90a): the
-// wgmma kernels flash_attention_wgmma.cu (head dims up to 256) and
-// flash_attention_wgmma_wide.cu (384 and 512) take all of it, the wide f32
-// kernel flash_attention_wide.cu the mbarriers, the TMA loads and the
-// driver's tensor-map encoder.  mbarriers, TMA loads and the tensor maps
-// they read, wgmma shared-memory descriptors (128-byte swizzle), the wgmma
-// instructions in bf16 and f16, the input type's conversions (Elem<T>) and
-// the online-softmax step on S fragments.
+// wgmma kernels flash_attention_wgmma.cu (head dims up to 256),
+// flash_attention_wgmma_wide.cu (384 and 512) and flash_attention.cu (f32
+// in TF32, up to 64) take all of it, the mma.sync kernel
+// flash_attention_wide.cu the mbarriers, the TMA loads, the TF32 split and
+// the driver's tensor-map encoder.  mbarriers, TMA loads and the tensor maps
+// they read, wgmma shared-memory descriptors (rows of 32, 64 or 128 bytes,
+// each with the swizzle of its width), the wgmma instructions in bf16 and
+// f16, the input type's conversions (Elem<T>) and the online-softmax step
+// on S fragments.
 #pragma once
 
 #include <cstdint>
@@ -63,23 +65,38 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (all in 16-byte units)
+// wgmma shared-memory descriptor of rows of RB bytes (128, 64 or 32) with
+// the swizzle of that width (layout type 1, 2 or 3): start address,
+// leading and stride byte offsets (all in 16-byte units)
+template <int RB>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
+  static_assert(RB == 128 || RB == 64 || RB == 32, "rows of 32 to 128 bytes");
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
 }
-// K-major (the reduction dim contiguous): 8-row groups 1024 bytes apart;
-// the leading offset is not used with this swizzle
+// K-major (the reduction dim contiguous): 8-row groups 8 RB bytes apart;
+// the leading offset is not used with these swizzles
+template <int RB = 128>
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
+  return smem_desc<RB>(addr, 16, 8 * RB);
 }
-// MN-major B of a key tile: 8-key groups 1024 bytes apart, 64-column
-// blocks one tile's block (its keys x 128 bytes) apart
+// MN-major B of a key tile: 8-key groups 8 RB bytes apart, blocks of RB
+// bytes of columns one tile's block (its keys x RB bytes) apart
+template <int RB = 128>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr,
                                                   uint32_t block_bytes) {
-  return smem_desc(addr, block_bytes, 1024);
+  return smem_desc<RB>(addr, block_bytes, 8 * RB);
+}
+
+// named barrier `id` (1 to 15) of `count` threads: wait there, or arrive
+// without waiting
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -116,10 +133,23 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
   "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define FA_SS_N128(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
 #define FA_SS_N32(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
   "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
   "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+#define FA_RS_N16(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7" \
+  "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+#define FA_RS_N32(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+  "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
 #define FA_RS_N64(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
@@ -143,6 +173,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
   "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
 
+// TF32 (f32 in, the low 13 mantissa bits zero): D (64 x 64, f32) += A (64 x
+// 8) . B (8 x 64, shared, K-major), A from shared memory (K-major) or from
+// registers; tf32 takes no transpose, so both operands are K-major
+#define FA_TF32_SS_N64 "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, %32, %33, p, 1, 1;\n}\n"
+#define FA_TF32_RS_N64 "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(FA_TF32_SS_N64 : FA_D32(d, 0)
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(FA_TF32_RS_N64 : FA_D32(d, 0) : FA_A4(a), "l"(b), "r"(1));
+}
+
 // The wgmma products, T the input type (__nv_bfloat16 or __half).
 // S (64 x 64, f32) = A (64 x 16, shared) . B (16 x 64, shared), both K-major
 template <typename T>
@@ -153,6 +205,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                  : "l"(a), "l"(b), "r"(accumulate));
   else
     asm volatile(FA_SS_N64("bf16") : FA_D32(d, 0)
+                 : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// S (64 x 128, f32) = A (64 x 16, shared) . B (16 x 128, shared), both
+// K-major
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  if constexpr (kF16<T>)
+    asm volatile(FA_SS_N128("f16") : FA_D32(d, 0), FA_D32(d, 32)
+                 : "l"(a), "l"(b), "r"(accumulate));
+  else
+    asm volatile(FA_SS_N128("bf16") : FA_D32(d, 0), FA_D32(d, 32)
                  : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -172,7 +237,21 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
 template <typename T, int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t* a,
                                          uint64_t b) {
-  if constexpr (D == 64) {
+  if constexpr (D == 16) {
+    if constexpr (kF16<T>)
+      asm volatile(FA_RS_N16("f16") : FA_D8(d, 0)
+                   : FA_A4(a), "l"(b), "r"(1));
+    else
+      asm volatile(FA_RS_N16("bf16") : FA_D8(d, 0)
+                   : FA_A4(a), "l"(b), "r"(1));
+  } else if constexpr (D == 32) {
+    if constexpr (kF16<T>)
+      asm volatile(FA_RS_N32("f16") : FA_D8(d, 0), FA_D8(d, 8)
+                   : FA_A4(a), "l"(b), "r"(1));
+    else
+      asm volatile(FA_RS_N32("bf16") : FA_D8(d, 0), FA_D8(d, 8)
+                   : FA_A4(a), "l"(b), "r"(1));
+  } else if constexpr (D == 64) {
     if constexpr (kF16<T>)
       asm volatile(FA_RS_N64("f16") : FA_D32(d, 0)
                    : FA_A4(a), "l"(b), "r"(1));
@@ -196,7 +275,8 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t* a,
                    : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64)
                    : FA_A4(a), "l"(b), "r"(1));
   } else {
-    static_assert(D == 256, "head dims 64, 128, 192 and 256 are built");
+    static_assert(D == 256, "head dims 16, 32, 64, 128, 192 and 256 are "
+                  "built");
     if constexpr (kF16<T>)
       asm volatile(FA_RS_N256("f16")
                    : FA_D32(d, 0), FA_D32(d, 32), FA_D32(d, 64), FA_D32(d, 96)
@@ -238,9 +318,19 @@ template <> struct Elem<__half> {
   }
 };
 
+// x = hi + lo + (an error below 2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in f32), both rounded to nearest, ties away from zero
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = __fsub_rn(x, __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
 // The online-softmax step of one key tile on a thread's N S fragments
-// (rows r0, r0 + 8; keys key0 + 8 j + {0, 1}, j < N / 4; N = 32 for a
-// 64-key tile, 16 for a 32-key one): p = exp2(s * scale_log2 -
+// (rows r0, r0 + 8; keys key0 + 8 j + {0, 1}, j < N / 4; N = 64 for a
+// 128-key tile, 32 for a 64-key one, 16 for a 32-key one): p = exp2(s *
+// scale_log2 -
 // m) into sc, the running max m (log2 domain) and this thread's part of
 // the row sums l updated, and alpha = exp2(m_old - m) for O.  The max is
 // taken over the raw scores, which scale_log2 > 0 leaves in order.  MASK:
@@ -305,17 +395,23 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (bh, s, d) tensor of T as a 3-d map with 64-column boxes of `rows`
-// rows, 128-byte swizzle, zeros past the edges
+// a (bh, s, d) tensor of T as a 3-d map with boxes of `rows` rows and
+// min(d, 64) columns (d 16, 32 or a multiple of 64), each row of the box
+// (32, 64 or 128 bytes) with the swizzle of its width, zeros past the
+// edges
 template <typename T>
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* p, int bh,
                   int s, int d, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const int cols = d < 64 ? d : 64;
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swz = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
   return enc(map, Elem<T>::MAP, 3, const_cast<void*>(p), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -1,57 +1,64 @@
-// Flash attention forward (online softmax) for head dims past 256, for
-// Hopper (sm_90a): f32 at D 384 and any multiple of 512, and bf16 and f16
-// past 512, the products on the tensor cores in three TF32 passes.
+// Flash attention forward (online softmax) in f32 past head dim 64, and
+// in bf16 and f16 past 512, for Hopper (sm_90a): the products on the
+// tensor cores in three TF32 passes (mma.sync).
 //
 // Replaces: repro/kernels/flash_attention.py, flash_attention_pallas
-// (_flash_kernel), for f32 inputs with D > 256 and bf16 and f16 inputs
-// with D > 512 (f32 up to 256 takes flash_attention.cu; bf16 and f16 up to
-// 256 flash_attention_wgmma.cu, up to 512 flash_attention_wgmma_wide.cu).
-// For each (batch*head, query row) it computes
+// (_flash_kernel), for f32 inputs with D > 64 and bf16 and f16 inputs with
+// D > 512 (f32 up to 64 takes flash_attention.cu, wgmma in three TF32
+// passes; bf16 and f16 up to 256 flash_attention_wgmma.cu, up to 512
+// flash_attention_wgmma_wide.cu).  For each (batch*head, query row) it
+// computes
 //   out = softmax(scale * q . K^T, masked) . V,   scale = float32(1/sqrt(D)),
 // with the scores, exponentials (base 2, of scores scaled by scale *
 // log2(e) after the product), running max, sum, P and the accumulator in
 // f32; out = acc / max(l, 1e-30), rounded once to the input type.  Where
 // causal, keys past the query's position (both counted from 0) take no
-// part, as the reference's -1e30 gives them p = 0.  D is 384 (f32 only) or
-// a multiple of 512 (the wrapper pads any other D with zero columns and
-// passes the scale of the unpadded D); BH, Sq and Sk are any sizes >= 1,
-// and a ragged tile of queries or keys is masked.
+// part, as the reference's -1e30 gives them p = 0.  D is 128, 192, 256 or
+// 384 (f32 only) or a multiple of 512 (the wrapper pads any other D
+// with zero columns and passes the scale of the unpadded D); BH, Sq and
+// Sk are any sizes >= 1, and a ragged tile of queries or keys is masked.
 //
 // Numerics.  Each operand x of both products (q, k, p, v) is split into
 // x_hi = tf32(x) and x_lo = tf32(x - x_hi), and a . b is summed in f32 as
 // a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (mma.sync m16n8k8 TF32 with f32
 // accumulators): each product within about 2^-21 of its f32 value, where
-// one TF32 pass would be off by 2^-11 and miss the f32 tolerance.  bf16
-// and f16 values are exact in TF32 (their lo is 0), so for them the
-// scores take one product (q_hi.k_hi) and P.V two (p_lo.v + p_hi.v), with
-// the same sums as the three.  The tf32 wgmma reads
-// B only K-major, and P.V's B = V is stored with the columns contiguous;
-// mma.sync takes its fragments from registers, loaded from padded rows, so
-// V needs no transpose.
+// one TF32 pass would be off by 2^-11 and miss the f32 tolerance.  bf16 and
+// f16 values are exact in TF32 (their lo is 0), so for them the scores
+// take one product (q_hi.k_hi) and P.V two (p_lo.v + p_hi.v), with the
+// same sums as the three.  The tf32 wgmma reads B only K-major, and P.V's
+// B = V is stored with the columns contiguous; mma.sync takes its
+// fragments from registers, loaded from padded rows, so V needs no
+// transpose.
 //
 // Bound on this card: operations.  Per query row and visible key, 2 D
 // multiply-adds; the tensor cores issue three of them for each in TF32
 // (bf16 and f16: 1.5).
 //
-// Design: one block of 384 threads (12 warps) per (bh, BQ = 48 query rows,
-// group of DG output columns), DG = D (384 or 512) up to 512 and 512
-// past it.  Each block computes every score of its rows once over all of
-// D (past 512, once for each group) and keeps its rows' whole accumulator
-// in registers: 48 x 512 f32 is 64 a thread.  Q, K and V stream through a
-// ring of 3 shared-memory stages by TMA (one thread issues the boxes of a
-// chunk; an mbarrier counts their bytes; one block barrier a chunk frees
-// the stage the next load takes), in chunks of about equal work: for each
-// 128-key tile, D / 64 score chunks (64 columns of the 48 Q rows and of
-// the 128 K rows), then 8 V chunks (16 keys x DG columns).  Warp (wr, wx) of the 3 x 4 warp grid
-// computes rows 16 wr .. + 15 of both products: keys 32 wx .. + 31 of the
-// scores (4 m16n8 tiles), then columns DG / 4 wx .. of P.V (DG / 32
-// tiles), loading each fragment element from rows padded so that a warp's
-// loads fall in distinct banks.  The raw scores go to shared memory, where
-// 8 threads a row take the tile's online-softmax step (row max and sum by
-// shuffles over the 8 lanes, P written back in place, alpha for the
-// accumulator beside it).  Key tiles wholly above a block's rows are not
-// visited; in causal mode the blocks with the most key tiles start first.
-// No allocation; the launch goes on the caller's stream.
+// Design: one block of 384 threads (12 warps) per (bh, BQ query rows,
+// group of DG output columns), DG = D up to 512 and 512 past it, BQ = 96
+// for f32 up to D 256 and 48 otherwise.  Each block computes every score
+// of its rows once over all of D (past 512, once for each group) and keeps
+// its rows' whole accumulator in registers: 48 x 512 f32 is 64 a thread,
+// 96 x 256 too.  Q, K and V stream through a ring of shared-memory stages
+// (3; 2 with 96 rows) by TMA (one thread issues the boxes of a chunk; an
+// mbarrier counts their bytes; one block barrier a chunk frees the stage
+// the next load takes): for each 128-key tile, D / 64 score chunks (64
+// columns of the Q rows and of the 128 K rows), then V chunks of VK keys
+// x DG columns, VK = 64 up to D 128, 32 up to 256 and 16 past it, so that
+// a V chunk holds about as much as a score chunk and a narrow head dim
+// pays few barriers a tile.  Warp (wr, wx) of the 3 x 4 warp grid
+// computes rows 16 wr .. + 15 (with 96 rows also 16 (wr + 3) .. + 15) of
+// both products: keys 32 wx .. + 31 of the scores (4 m16n8 tiles), then
+// columns DG / 4 wx .. of P.V (DG / 32 tiles), loading each fragment
+// element from rows padded so that a warp's loads fall in distinct banks;
+// a warp with two row tiles splits each K and V element once for both,
+// which halves the splits an f32 product takes.  The raw scores go to
+// shared memory, where 8 (with 96 rows 4) threads a row take the tile's
+// online-softmax step (row max and sum by shuffles over those lanes, P
+// written back in place, alpha for the accumulator beside it).  Key tiles
+// wholly above a block's rows are not visited; in causal mode the blocks
+// with the most key tiles start first.  No allocation; the launch goes on
+// the caller's stream.
 #include <climits>
 
 #include "flash_attention_wgmma.cuh"
@@ -59,19 +66,19 @@
 namespace {
 
 constexpr int THREADS = 384;       // 12 warps: a 3 x 4 grid
-constexpr int BQ = 48;             // query rows per block
-constexpr int BK = 128;            // keys per tile
 constexpr int DC = 64;             // columns of a score chunk
-constexpr int VK = 16;             // keys of a V chunk
-constexpr int NV = BK / VK;        // V chunks a tile
-constexpr int STAGES = 3;
+constexpr int GROUP = 512;         // output columns of a block past 512
+constexpr int BK = 128;            // keys per tile
 constexpr int LP = BK + 4;         // row stride of the scores and P: the
                                    // 8 rows of an A fragment fall 4 banks
                                    // apart
-constexpr int GROUP = 512;         // output columns of a block past 512
 constexpr float NEG = -1e30f;
 
-// Shared memory of one instance, in bytes: the stages, their mbarriers,
+// Tiles and shared memory of one instance.  A warp computes MT m16 tiles
+// of rows: 2 for f32 up to D 256 (each K and V fragment split once for
+// both; the accumulator of 2 x 16 rows x D / 4 columns fits), 1 past it;
+// a block holds BQ = 48 MT rows, which the softmax step takes 8 / MT
+// threads a row.  Shared memory, in bytes: the stages, their mbarriers,
 // then the scores / P and the rows' alpha and l (f32).  A stage holds a
 // score chunk (the Q rows, then the K rows, each LDC elements long) or a V
 // chunk (four quarters of VK rows, each LDV elements long, one for each
@@ -80,9 +87,17 @@ constexpr float NEG = -1e30f;
 // stride at which a warp's fragment loads fall in distinct banks (in f32:
 // the 8 rows of an A or B fragment 4 banks apart in a score chunk, the 4
 // rows of a V fragment 8 apart); the extra columns are the next chunk's,
-// or zeros past D, and go unread.  Every box starts on 128 bytes.
+// or zeros past D, and go unread.  Every box starts on 128 bytes.  VK is
+// the keys of a V chunk, NV the V chunks of a tile; 3 stages, 2 where the
+// block's 96 rows leave no room for a third.
 template <typename T, int DG>
 struct Smem {
+  static constexpr int MT = std::is_same<T, float>::value && DG <= 256 ? 2
+                                                                       : 1;
+  static constexpr int BQ = 48 * MT;
+  static constexpr int STAGES = MT == 2 ? 2 : 3;
+  static constexpr int VK = DG <= 128 ? 64 : DG <= 256 ? 32 : 16;
+  static constexpr int NV = BK / VK;
   static constexpr int E = 16 / sizeof(T);     // elements of 16 bytes
   static constexpr int LDC = DC + E;
   static constexpr int LDV = DG / 4 + 2 * E;
@@ -121,15 +136,6 @@ __device__ __forceinline__ void st2(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-// x = hi + lo + (an error below 2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
-// (x - hi is exact in f32), both rounded to nearest
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = __fsub_rn(x, __uint_as_float(hi));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
 // c (16 x 8, f32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32)
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -161,18 +167,21 @@ __device__ __forceinline__ uint32_t exact_tf32(const T* p) {
 
 // q, k, v: 3-d tensor maps over (bh, S, dp) of T (boxes of LDC columns by
 // BQ or BK rows, of LDV columns by VK rows); out (bh, sq, dp) of T.  A
-// block's group of output columns is NB blocks of 128 (DG = 128 NB).
-// Grid: groups x query tiles x bh blocks, the group fastest, then bh.
-template <typename T, int NB>
+// block's group of output columns is DG wide.  Grid: groups x query tiles
+// x bh blocks, the group fastest, then bh.
+template <typename T, int DG>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wide_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   T* __restrict__ out, int sq, int sk, int dp,
                   float scale_log2, int causal) {
-  constexpr int DG = 128 * NB;
   using L = Smem<T, DG>;
-  constexpr int LDC = L::LDC, LDV = L::LDV;
+  constexpr int LDC = L::LDC, LDV = L::LDV, VK = L::VK, NV = L::NV;
+  constexpr int MT = L::MT, BQ = L::BQ, STAGES = L::STAGES;
+  constexpr int NS = BK / 32;        // a warp's m16n8 tiles of the scores
+  constexpr int TPR = 8 / MT;        // threads a row in the softmax step
+  constexpr int KS = BK / TPR;       // a thread's keys in the softmax step
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 127u) & ~127u;
@@ -243,82 +252,104 @@ flash_wide_kernel(const __grid_constant__ CUtensorMap tq,
   };
 
   // the thread's places in the mma fragments of warp (wr, wx): rows
-  // 16 wr + r8 (+ 8) of the block; in the scores keys 32 wx + 8 n + 2 c4
-  // (+ 1) of 4 key groups n, in P.V columns DG / 4 wx + 8 n + 2 c4 (+ 1)
-  // of NT column groups n; A fragments at columns c4 (+ 4), B fragments
-  // at rows c4 (+ 4) of the reduction
+  // row0[i] (+ 8) of the block, row0[i] = 16 (wr + 3 i) + r8 for its MT
+  // row tiles i; in the scores keys BK / 4 wx + 8 n + 2 c4 (+ 1) of NS key
+  // groups n, in P.V columns DG / 4 wx + 8 n + 2 c4 (+ 1) of NT column
+  // groups n; A fragments at columns c4 (+ 4), B fragments at rows c4 (+
+  // 4) of the reduction
   constexpr int NT = DG / 32;
   const int r8 = lane / 4, c4 = lane % 4;
-  const int row0 = 16 * wr + r8;
-  // its row and 16 keys in the softmax step
-  const int srow = tid / 8, seg = tid % 8;
+  int row0[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) row0[i] = 16 * (wr + 3 * i) + r8;
+  // its row and KS keys in the softmax step
+  const int srow = tid / TPR, seg = tid % TPR;
 
-  float o[NT][4];
+  float o[MT][NT][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][n][e] = 0.f;
   float m = NEG, l = 0.f;           // srow's running max and sum
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    float sc[4][4];
+    float sc[MT][NS][4];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][n][e] = 0.f;
     for (int r = 0; r < ns; ++r) {
       const T* qs = acquire();
-      const T* qa = qs + row0 * LDC + c4;
-      const T* kb_ = qs + (BQ + 32 * wx + r8) * LDC + c4;
+      const T* kb_ = qs + (BQ + (BK / 4) * wx + r8) * LDC + c4;
 #pragma unroll
       for (int kk = 0; kk < DC; kk += 8) {
         if constexpr (std::is_same<T, float>::value) {
-          uint32_t ah[4], al[4];
-          split_tf32(ldf(qa + kk), ah[0], al[0]);
-          split_tf32(ldf(qa + 8 * LDC + kk), ah[1], al[1]);
-          split_tf32(ldf(qa + kk + 4), ah[2], al[2]);
-          split_tf32(ldf(qa + 8 * LDC + kk + 4), ah[3], al[3]);
+          uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
+          for (int i = 0; i < MT; ++i) {
+            const T* qa = qs + row0[i] * LDC + c4 + kk;
+            split_tf32(ldf(qa), ah[i][0], al[i][0]);
+            split_tf32(ldf(qa + 8 * LDC), ah[i][1], al[i][1]);
+            split_tf32(ldf(qa + 4), ah[i][2], al[i][2]);
+            split_tf32(ldf(qa + 8 * LDC + 4), ah[i][3], al[i][3]);
+          }
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
             uint32_t bh[2], bl[2];
             split_tf32(ldf(kb_ + 8 * n * LDC + kk), bh[0], bl[0]);
             split_tf32(ldf(kb_ + 8 * n * LDC + kk + 4), bh[1], bl[1]);
-            mma_3xtf32(sc[n], ah, al, bh, bl);
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+              mma_3xtf32(sc[i][n], ah[i], al[i], bh, bl);
           }
         } else {
-          const uint32_t a[4] = {
-              exact_tf32(qa + kk), exact_tf32(qa + 8 * LDC + kk),
-              exact_tf32(qa + kk + 4), exact_tf32(qa + 8 * LDC + kk + 4)};
+          uint32_t a[MT][4];
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
+          for (int i = 0; i < MT; ++i) {
+            const T* qa = qs + row0[i] * LDC + c4 + kk;
+            a[i][0] = exact_tf32(qa);
+            a[i][1] = exact_tf32(qa + 8 * LDC);
+            a[i][2] = exact_tf32(qa + 4);
+            a[i][3] = exact_tf32(qa + 8 * LDC + 4);
+          }
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
             const uint32_t b[2] = {exact_tf32(kb_ + 8 * n * LDC + kk),
                                    exact_tf32(kb_ + 8 * n * LDC + kk + 4)};
-            mma_tf32(sc[n], a, b);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) mma_tf32(sc[i][n], a[i], b);
           }
         }
       }
     }
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      float* p0 = ps + row0 * LP + 32 * wx + 8 * n + 2 * c4;
-      *reinterpret_cast<float2*>(p0) = make_float2(sc[n][0], sc[n][1]);
-      *reinterpret_cast<float2*>(p0 + 8 * LP) =
-          make_float2(sc[n][2], sc[n][3]);
-    }
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        float* p0 = ps + row0[i] * LP + (BK / 4) * wx + 8 * n + 2 * c4;
+        *reinterpret_cast<float2*>(p0) = make_float2(sc[i][n][0],
+                                                     sc[i][n][1]);
+        *reinterpret_cast<float2*>(p0 + 8 * LP) =
+            make_float2(sc[i][n][2], sc[i][n][3]);
+      }
     __syncthreads();
 
-    // the online-softmax step of row srow over keys 16 seg .. + 15: the
+    // the online-softmax step of row srow over keys KS seg .. + KS - 1: the
     // max over the raw scores (scale_log2 > 0 keeps their order), p =
     // exp2(s scale_log2 - m); a masked key (past Sk or, where causal, past
     // the row's position) gets p = 0
     {
-      float* prow = ps + srow * LP + 16 * seg;
-      const int row = q0 + srow, key = k0 + 16 * seg;
+      float* prow = ps + srow * LP + KS * seg;
+      const int row = q0 + srow, key = k0 + KS * seg;
       const float ninf = __int_as_float(0xff800000);
-      float s[16];
+      float s[KS];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < KS / 4; ++e) {
         const float4 x = *reinterpret_cast<const float4*>(prow + 4 * e);
         s[4 * e] = x.x;
         s[4 * e + 1] = x.y;
@@ -327,67 +358,76 @@ flash_wide_kernel(const __grid_constant__ CUtensorMap tq,
       }
       float mx = ninf;
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
+      for (int e = 0; e < KS; ++e) {
         if (!(key + e < sk && (!causal || key + e <= row))) s[e] = ninf;
         mx = fmaxf(mx, s[e]);
       }
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
+      for (int off = TPR / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m, __fmul_rn(mx, scale_log2));
       const float alpha = exp2f(__fsub_rn(m, m_new));
       m = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
+      for (int e = 0; e < KS; ++e) {
         s[e] = exp2f(__fmaf_rn(s[e], scale_log2, -m_new));
         rs = __fadd_rn(rs, s[e]);
       }
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
+      for (int off = TPR / 2; off > 0; off >>= 1)
         rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, off));
       l = __fadd_rn(__fmul_rn(l, alpha), rs);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < KS / 4; ++e)
         *reinterpret_cast<float4*>(prow + 4 * e) =
             make_float4(s[4 * e], s[4 * e + 1], s[4 * e + 2], s[4 * e + 3]);
       if (seg == 0) als[srow] = alpha;
     }
     __syncthreads();
 
-    {
-      const float a0 = als[row0], a1 = als[row0 + 8];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float a0 = als[row0[i]], a1 = als[row0[i] + 8];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        o[n][0] = __fmul_rn(o[n][0], a0);
-        o[n][1] = __fmul_rn(o[n][1], a0);
-        o[n][2] = __fmul_rn(o[n][2], a1);
-        o[n][3] = __fmul_rn(o[n][3], a1);
+        o[i][n][0] = __fmul_rn(o[i][n][0], a0);
+        o[i][n][1] = __fmul_rn(o[i][n][1], a0);
+        o[i][n][2] = __fmul_rn(o[i][n][2], a1);
+        o[i][n][3] = __fmul_rn(o[i][n][3], a1);
       }
     }
     for (int r = 0; r < NV; ++r) {
       const T* vs = acquire();
-      const float* pa = ps + row0 * LP + r * VK + c4;
       const T* vb_ = vs + (wx * VK + c4) * LDV + r8;
 #pragma unroll
       for (int kk = 0; kk < VK; kk += 8) {
-        uint32_t ah[4], al[4];
-        split_tf32(pa[kk], ah[0], al[0]);
-        split_tf32(pa[8 * LP + kk], ah[1], al[1]);
-        split_tf32(pa[kk + 4], ah[2], al[2]);
-        split_tf32(pa[8 * LP + kk + 4], ah[3], al[3]);
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float* pa = ps + row0[i] * LP + r * VK + c4 + kk;
+          split_tf32(pa[0], ah[i][0], al[i][0]);
+          split_tf32(pa[8 * LP], ah[i][1], al[i][1]);
+          split_tf32(pa[4], ah[i][2], al[i][2]);
+          split_tf32(pa[8 * LP + 4], ah[i][3], al[i][3]);
+        }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           if constexpr (std::is_same<T, float>::value) {
             uint32_t bh[2], bl[2];
             split_tf32(ldf(vb_ + kk * LDV + 8 * n), bh[0], bl[0]);
             split_tf32(ldf(vb_ + (kk + 4) * LDV + 8 * n), bh[1], bl[1]);
-            mma_3xtf32(o[n], ah, al, bh, bl);
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+              mma_3xtf32(o[i][n], ah[i], al[i], bh, bl);
           } else {
             const uint32_t b[2] = {exact_tf32(vb_ + kk * LDV + 8 * n),
                                    exact_tf32(vb_ + (kk + 4) * LDV + 8 * n)};
-            mma_tf32(o[n], al, b);
-            mma_tf32(o[n], ah, b);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              mma_tf32(o[i][n], al[i], b);
+              mma_tf32(o[i][n], ah[i], b);
+            }
           }
         }
       }
@@ -397,16 +437,18 @@ flash_wide_kernel(const __grid_constant__ CUtensorMap tq,
   if (seg == 0) lsum[srow] = l;
   __syncthreads();
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + row0 + 8 * h;
-    if (row >= sq) continue;
-    const float den = fmaxf(lsum[row0 + 8 * h], 1e-30f);
-    T* orow = out + (bh * sq + row) * dp + g0 + (DG / 4) * wx + 2 * c4;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      st2(orow + 8 * n, __fdiv_rn(o[n][2 * h], den),
-          __fdiv_rn(o[n][2 * h + 1], den));
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + row0[i] + 8 * h;
+      if (row >= sq) continue;
+      const float den = fmaxf(lsum[row0[i] + 8 * h], 1e-30f);
+      T* orow = out + (bh * sq + row) * dp + g0 + (DG / 4) * wx + 2 * c4;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        st2(orow + 8 * n, __fdiv_rn(o[i][n][2 * h], den),
+            __fdiv_rn(o[i][n][2 * h + 1], den));
+    }
 }
 
 template <typename T> struct MapType;
@@ -436,35 +478,35 @@ CUresult make_box_map(EncodeTiled enc, CUtensorMap* map, const void* p,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <typename T, int NB>
+template <typename T, int DG>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int d, int causal, float scale_log2,
            cudaStream_t stream) {
-  constexpr int DG = 128 * NB;
   using L = Smem<T, DG>;
-  const int64_t blocks = (int64_t)bh * ((sq + BQ - 1) / BQ) * (d / DG);
+  const int64_t blocks = (int64_t)bh * ((sq + L::BQ - 1) / L::BQ) * (d / DG);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
   CUtensorMap tq, tk, tv;
-  CUresult r = make_box_map<T>(enc, &tq, q, bh, sq, d, L::LDC, BQ);
+  CUresult r = make_box_map<T>(enc, &tq, q, bh, sq, d, L::LDC, L::BQ);
   if (r == CUDA_SUCCESS)
     r = make_box_map<T>(enc, &tk, k, bh, sk, d, L::LDC, BK);
   if (r == CUDA_SUCCESS)
-    r = make_box_map<T>(enc, &tv, v, bh, sk, d, L::LDV, VK);
+    r = make_box_map<T>(enc, &tv, v, bh, sk, d, L::LDV, L::VK);
   if (r != CUDA_SUCCESS) return -(int)r;
   const size_t smem = L::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_wide_kernel<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wide_kernel<T, DG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  flash_wide_kernel<T, NB><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  flash_wide_kernel<T, DG><<<(unsigned)blocks, THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<T*>(out), sq, sk, d, scale_log2, causal);
   return (int)cudaGetLastError();
 }
 
-// f32 takes D 384 (one group of 384 columns) and any multiple of 512; bf16
-// and f16 any multiple of 512 (up to 512 they take the wgmma kernels)
+// f32 takes D 128, 192, 256 and 384 (one group of D columns) and any
+// multiple of 512 (up to 64 it takes flash_attention.cu); bf16 and f16 any
+// multiple of 512 (up to 512 they take the wgmma kernels)
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
              int sq, int sk, int d, int causal, float scale_log2,
@@ -473,26 +515,40 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (std::is_same<T, float>::value)
-    if (d == 384)
-      return launch<T, 3>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
-                          st);
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 128:
+        return launch<T, 128>(q, k, v, out, bh, sq, sk, d, causal,
+                              scale_log2, st);
+      case 192:
+        return launch<T, 192>(q, k, v, out, bh, sq, sk, d, causal,
+                              scale_log2, st);
+      case 256:
+        return launch<T, 256>(q, k, v, out, bh, sq, sk, d, causal,
+                              scale_log2, st);
+      case 384:
+        return launch<T, 384>(q, k, v, out, bh, sq, sk, d, causal,
+                              scale_log2, st);
+      default:
+        break;
+    }
+  }
   if (d % GROUP == 0)
-    return launch<T, GROUP / 128>(q, k, v, out, bh, sq, sk, d, causal,
-                                  scale_log2, st);
+    return launch<T, GROUP>(q, k, v, out, bh, sq, sk, d, causal, scale_log2,
+                            st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (bh, sq, d); k, v: (bh, sk, d); out: (bh, sq, d), all contiguous, of
-// one type, on 16-byte boundaries; d: 384 (f32) or a multiple of 512; bh,
-// sq, sk >= 1 (bh times the query tiles of 48 rows times the column groups
-// at most INT_MAX); scale_log2 = f32(1/sqrt(D)) * log2(e), D the head dim
-// before any padding.  Each returns the CUDA error code of the launch (0 =
-// launched), or minus the driver's code where a tensor map could not be
-// made; any stale error is cleared first so that the code reports this
-// launch alone.
+// one type, on 16-byte boundaries; d: 128, 192, 256 or 384 (f32) or a
+// multiple of 512; bh, sq, sk >= 1 (bh times the query tiles of 48 or 96
+// rows times the column groups at most INT_MAX); scale_log2 =
+// f32(1/sqrt(D)) * log2(e), D the head dim before any padding.  Each
+// returns the CUDA error code of the launch (0 = launched), or minus the
+// driver's code where a tensor map could not be made; any stale error is
+// cleared first so that the code reports this launch alone.
 extern "C" int flash_attention_wide_launch(const void* q, const void* k,
                                            const void* v, void* out, int bh,
                                            int sq, int sk, int d, int causal,

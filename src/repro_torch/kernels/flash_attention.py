@@ -5,23 +5,25 @@ forward online-softmax attention over (BH, S, D) tensors, causal or not,
 scale 1/sqrt(D), f32, bf16 or f16 in, the input type out, f32 inside.
 Which kernel takes a call, by head dim D and input type:
 
-- D up to 256: bf16 and f16 ``csrc/flash_attention_wgmma.cu`` (wgmma on
+- f32, each f32 product as three TF32 ones on the tensor cores, K/V by
+  TMA: up to D 64 ``csrc/flash_attention.cu`` (wgmma; the producer
+  warpgroup splits K and V into TF32 hi and lo, V transposed), built for D
+  64; above it ``csrc/flash_attention_wide.cu`` (mma.sync, the operands
+  split as they are loaded), built for D 128, 192, 256, 384 and 512, past
+  512 the output columns in groups of 512 over the grid (each group's
+  block computes the scores over all of D).
+- bf16 and f16 up to D 256: ``csrc/flash_attention_wgmma.cu`` (wgmma on
   the tensor cores, K/V by TMA, P split into two terms of the input type),
-  f32 ``csrc/flash_attention.cu`` (f32 FMAs on the CUDA cores); both built
-  for D 64, 128, 192 and 256.
-- D in (256, 512]: bf16 and f16 ``csrc/flash_attention_wgmma_wide.cu``
-  (the same numerics, the D columns split between two consumer warpgroups
-  that share each score), f32 ``csrc/flash_attention_wide.cu`` (mma.sync
-  on the tensor cores, each f32 product as three TF32 ones, K/V by TMA);
-  built for D 384 and 512.
-- D past 512, any of the three types: ``csrc/flash_attention_wide.cu``,
-  the output columns in groups of 512 over the grid (each group's block
-  computes the scores over all of D).
+  built for D 16, 32, 64, 128, 192 and 256.
+- bf16 and f16 in (256, 512]: ``csrc/flash_attention_wgmma_wide.cu`` (the
+  same numerics, the D columns split between two consumer warpgroups that
+  share each score), built for D 384 and 512; past 512 the f32 kernel's
+  library, in groups of 512 output columns.
 
-Any other D is padded with zero columns to the next built head dim
-(:func:`padded_head_dim`: the next of 64, 128, 192, 256, 384 and 512, past
-512 the next multiple of 512), one launch at the unpadded D's scale.  The
-plain torch version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
+Any other D is padded with zero columns to the next head dim built for
+its type (:func:`padded_head_dim`), one launch at the unpadded D's scale.
+The plain torch version is
+:func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations
 
@@ -35,13 +37,19 @@ from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# the head dims the kernels are built for: up to 256 (MAX_HEAD_DIM) the
-# narrow kernels, then the wide ones; past the last, multiples of GROUP
-HEAD_DIMS = (64, 128, 192, 256)
+# the head dims the bf16 and f16 kernels are built for: up to 256
+# (MAX_HEAD_DIM) the wgmma kernel, then the wide ones; past the last,
+# multiples of GROUP.  f32 takes F32_HEAD_DIMS (up to F32_WGMMA_HEAD_DIM
+# the wgmma TF32 kernel, then the mma.sync one) and past them the same
+# multiples of GROUP
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 WIDE_HEAD_DIMS = (384, 512)
 GROUP = WIDE_HEAD_DIMS[-1]
-# dtype -> (library, its C launcher), head dims up to MAX_HEAD_DIM
+F32_WGMMA_HEAD_DIM = 64
+F32_HEAD_DIMS = (64, 128, 192, 256) + WIDE_HEAD_DIMS
+# dtype -> (library, its C launcher), head dims up to MAX_HEAD_DIM (f32:
+# up to F32_WGMMA_HEAD_DIM)
 _KERNELS = {torch.float32: ("flash_attention", "flash_attention_launch"),
             torch.bfloat16: ("flash_attention_wgmma",
                              "flash_attention_wgmma_launch"),
@@ -66,7 +74,7 @@ _GROUPED = {torch.float32: ("flash_attention_wide",
 def kernel_of(dtype: torch.dtype, d: int) -> "tuple[str, str]":
     """(library, C launcher) that attention of ``dtype`` at head dim ``d``
     launches."""
-    if d <= MAX_HEAD_DIM:
+    if d <= (F32_WGMMA_HEAD_DIM if dtype == torch.float32 else MAX_HEAD_DIM):
         return _KERNELS[dtype]
     return (_WIDE if d <= GROUP else _GROUPED)[dtype]
 
@@ -79,24 +87,26 @@ def _launcher(dtype: torch.dtype, d: int):
     return fn
 
 
-def padded_head_dim(d: int) -> int:
-    """The built head dim that a head dim of ``d`` >= 1 runs at: the next of
-    ``HEAD_DIMS`` and ``WIDE_HEAD_DIMS``, past the last the next multiple of
-    ``GROUP``."""
+def padded_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The built head dim that a head dim of ``d`` >= 1 in ``dtype`` runs
+    at: the next of ``HEAD_DIMS`` and ``WIDE_HEAD_DIMS`` (f32: of
+    ``F32_HEAD_DIMS``), past the last the next multiple of ``GROUP``."""
     if d > GROUP:
         return -(-d // GROUP) * GROUP
-    return next(w for w in HEAD_DIMS + WIDE_HEAD_DIMS if w >= d)
+    built = (F32_HEAD_DIMS if dtype == torch.float32
+             else HEAD_DIMS + WIDE_HEAD_DIMS)
+    return next(w for w in built if w >= d)
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                  ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
     """q, k and v with zero columns appended up to :func:`padded_head_dim`
-    (the same tensors where D is built).  The zeros add exact zeros to
-    every q.k and give zero output columns, so attention of the padded
-    tensors at the scale of the unpadded D, sliced back to D columns, is
-    attention of the unpadded ones."""
+    of q's dtype (the same tensors where D is built).  The zeros add exact
+    zeros to every q.k and give zero output columns, so attention of the
+    padded tensors at the scale of the unpadded D, sliced back to D
+    columns, is attention of the unpadded ones."""
     d = q.shape[-1]
-    dp = padded_head_dim(d)
+    dp = padded_head_dim(d, q.dtype)
     if dp == d:
         return q, k, v
     return tuple(torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
@@ -137,7 +147,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_tensor(k, "k", q.dtype, q.device, (bh, sk, d))
     _build.check_tensor(v, "v", q.dtype, q.device, (bh, sk, d))
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # 16-byte vector loads (f32) and TMA (bf16, f16) need aligned rows
+        # TMA needs rows on 16-byte boundaries
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     qp, kp, vp = pad_head_dim(q, k, v)

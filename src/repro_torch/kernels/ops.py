@@ -224,8 +224,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of its block, Sq < 16) to its plain version, which computes the same
     function.  Here a CUDA tensor of any BH, Sq, Sk >= 1, any D >= 1 and
     f32, bf16 or f16 goes to a kernel, which masks a ragged edge; a D that
-    no kernel is built for is padded to the next built width (64, 128,
-    192, 256, 384, 512, then multiples of 512), one launch either way."""
+    no kernel is built for is padded to the next width built for its type
+    (bf16 and f16 16, 32, 64, 128, 192, 256, 384, 512; f32 the same from
+    64; then multiples of 512), one launch either way."""
     if q.is_meta:
         return flash_attention_fake(q, k, v)
     if _on_cpu(q):

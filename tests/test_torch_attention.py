@@ -121,6 +121,57 @@ def test_flash_attention_matches_reference_head_dims(d, causal, dtype):
                                atol=tol)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) rounded to TF32's 10 mantissa bits with ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds: half the weight of the 13 dropped bits
+    added to the magnitude's bits, then those bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 kernel takes it on the tensor cores: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), and a_lo.b_hi +
+    a_hi.b_lo + a_hi.b_hi summed in f32 (a product of two TF32 values is
+    exact in f32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_three_tf32_products_hold_the_f32_tolerance(d):
+    """The f32 kernel's numerics below head dim 512, emulated in torch: the
+    scores and P.V as three TF32 products each (``_mm_3xtf32``), the
+    softmax in f32 with base-2 exponentials of scores scaled by the
+    wrapper's scale_log2 after the product, out = acc / max(l, 1e-30).
+    Causal, Sq = Sk = 4,096 (long rows, where the products' errors add
+    up), against the reference's Pallas kernel in interpret mode at the
+    reference test's f32 tolerance, rtol = atol = 2e-4.  One TF32 pass (hi
+    alone) misses it."""
+    import math
+    q, k, v = _qkv(2, 4096, 4096, d, seed=4096 + d)
+    want = np.asarray(JK.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), causal=True))
+    scale_log2 = float(np.float32(float(np.float32(1.0 / np.sqrt(d)))
+                                  * math.log2(math.e)))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    causal = torch.ones(4096, 4096, dtype=torch.bool).tril()
+
+    def attention(mm):
+        s = mm(qt, kt.transpose(-1, -2))
+        s = torch.where(causal, s, -math.inf)
+        m = s.amax(-1, keepdim=True) * scale_log2
+        p = torch.exp2(s * scale_log2 - m)
+        acc = mm(p, vt)
+        return acc / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+    np.testing.assert_allclose(attention(_mm_3xtf32).numpy(), want,
+                               rtol=2e-4, atol=2e-4)
+    one = attention(lambda a, b: _tf32(a) @ _tf32(b)).numpy()
+    assert not np.allclose(one, want, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("sq,sk,causal", [(300, 300, True), (8, 256, False),
                                           (8, 256, True)])
@@ -141,35 +192,71 @@ def test_flash_attention_matches_reference_ragged(sq, sk, causal, dtype):
                                atol=tol)
 
 
-@pytest.mark.parametrize("d", [1, 16, 48, 100, 200, 300, 600])
+# the widths each type runs at up to 1024: f32 (the TF32 kernel) from 64,
+# bf16 and f16 (the wgmma kernels) from 16
+_BUILT = {torch.float32: (64, 128, 192, 256, 384, 512, 1024),
+          torch.bfloat16: (16, 32, 64, 128, 192, 256, 384, 512, 1024)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 16, 20, 40, 48, 100, 200, 300, 600])
 @pytest.mark.parametrize("causal", [True, False])
-def test_padded_head_dim_is_the_same_function(d, causal):
-    """The wrapper's padding (below 256 to 64 .. 256; 300 to 384, 600 to
-    1024): the plain version on the padded q, k, v at the unpadded D's
-    scale, sliced back to D columns, equals the plain version on the
-    unpadded ones: the zero columns add exact zeros to every q.k, and the
-    products' sums are blocked otherwise at another width, so rtol = atol
-    = 1e-6, a few f32 steps of outputs below 1."""
+def test_padded_head_dim_is_the_same_function(d, causal, dtype):
+    """The wrapper's padding (f32 below 256 to 64 .. 256, bf16 to 16 .. 256;
+    300 to 384, 600 to 1024): the plain version on the padded q, k, v at
+    the unpadded D's scale, sliced back to D columns, equals the plain
+    version on the unpadded ones (both in f32, on the same values): the
+    zero columns add exact zeros to every q.k, and the products' sums are
+    blocked otherwise at another width, so rtol = atol = 1e-6, a few f32
+    steps of outputs below 1."""
     from repro_torch.kernels.flash_attention import (pad_head_dim,
                                                      padded_head_dim)
-    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 96, 80, d, seed=d))
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(2, 96, 80, d, seed=d))
     qp, kp, vp = pad_head_dim(q, k, v)
-    dp = padded_head_dim(d)
-    assert dp in (64, 128, 192, 256, 384, 1024) and dp >= d
+    dp = padded_head_dim(d, dtype)
+    assert dp == next(w for w in _BUILT[dtype] if w >= d)
     assert qp.shape == (2, 96, dp) and vp.shape == (2, 80, dp)
+    assert qp.dtype == dtype
     assert not qp[..., d:].any() and not kp[..., d:].any()
     assert not vp[..., d:].any()
     scale = 1.0 / np.sqrt(d)
-    got = TRef.flash_attention_ref(qp, kp, vp, causal=causal, scale=scale)
+    got = TRef.flash_attention_ref(qp.float(), kp.float(), vp.float(),
+                                   causal=causal, scale=scale)
     assert not got[..., d:].any()
     np.testing.assert_allclose(
         got[..., :d].numpy(),
-        TRef.flash_attention_ref(q, k, v, causal=causal, scale=scale).numpy(),
+        TRef.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal, scale=scale).numpy(),
         rtol=1e-6, atol=1e-6)
     # a built head dim is left as it is
-    for built in (128, 512):
-        q, k, v = (torch.from_numpy(a) for a in _qkv(2, 8, 8, built, seed=1))
+    for built in (_BUILT[dtype][0], 128, 512):
+        q, k, v = (torch.from_numpy(a).to(dtype)
+                   for a in _qkv(2, 8, 8, built, seed=1))
         assert all(a is b for a, b in zip(pad_head_dim(q, k, v), (q, k, v)))
+
+
+@pytest.mark.parametrize("d", list(range(1, 65)) + [65, 100, 128, 129, 192,
+                                                     200, 255, 256])
+def test_padded_head_dim_and_kernel_up_to_256(d):
+    """Up to 256, bf16 and f16 run at the next of 16, 32, 64, 128, 192 and
+    256 on the wgmma kernel (16 and 32 are built, no padding to 64); f32
+    runs at the next of 64, 128, 192 and 256, three TF32 products on the
+    tensor cores: up to 64 on the wgmma kernel (``flash_attention``),
+    above it on the mma.sync one (``flash_attention_wide``).  No f32 call
+    is left on the CUDA cores."""
+    from repro_torch.kernels.flash_attention import kernel_of, padded_head_dim
+    half = next(w for w in (16, 32, 64, 128, 192, 256) if w >= d)
+    assert padded_head_dim(d, torch.bfloat16) == half
+    assert padded_head_dim(d, torch.float16) == half
+    assert padded_head_dim(d, torch.float32) == max(64, half)
+    assert kernel_of(torch.float32, d) == (
+        ("flash_attention", "flash_attention_launch") if d <= 64
+        else ("flash_attention_wide", "flash_attention_wide_launch"))
+    assert kernel_of(torch.bfloat16, d) == ("flash_attention_wgmma",
+                                            "flash_attention_wgmma_launch")
+    assert kernel_of(torch.float16, d) == (
+        "flash_attention_wgmma", "flash_attention_wgmma_f16_launch")
 
 
 @pytest.mark.parametrize("d,want", [(257, 384), (300, 384), (384, 384),
@@ -182,7 +269,8 @@ def test_padded_head_dim_and_kernel_past_256(d, want):
     wide f32 kernel, and past 512 every type takes the wide f32
     kernel's launcher of its type."""
     from repro_torch.kernels.flash_attention import kernel_of, padded_head_dim
-    assert padded_head_dim(d) == want
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert padded_head_dim(d, dtype) == want
     wide = d <= 512
     assert kernel_of(torch.float32, d) == ("flash_attention_wide",
                                            "flash_attention_wide_launch")
@@ -195,9 +283,12 @@ def test_padded_head_dim_and_kernel_past_256(d, want):
          "flash_attention_wgmma_wide_f16_launch")
         if wide else ("flash_attention_wide",
                       "flash_attention_wide_f16_launch"))
-    # up to 256 the narrow kernels, as before
-    assert kernel_of(torch.float32, 256) == ("flash_attention",
-                                             "flash_attention_launch")
+    # up to 256 the wgmma kernel in bf16 and f16; f32 at 256 the mma.sync
+    # TF32 kernel, at 64 the wgmma TF32 one
+    assert kernel_of(torch.float32, 256) == ("flash_attention_wide",
+                                             "flash_attention_wide_launch")
+    assert kernel_of(torch.float32, 64) == ("flash_attention",
+                                            "flash_attention_launch")
     assert kernel_of(torch.bfloat16, 200) == ("flash_attention_wgmma",
                                               "flash_attention_wgmma_launch")
 

@@ -414,7 +414,7 @@ _FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-5),
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [16, 48, 64, 128, 192, 256])
+@pytest.mark.parametrize("d", [16, 20, 32, 48, 64, 100, 128, 192, 200, 256])
 @pytest.mark.parametrize("sq,sk,causal", [(256, 256, True), (256, 256, False),
                                           (80, 80, True), (256, 1024, False),
                                           (512, 256, False), (64, 200, False),
@@ -422,17 +422,19 @@ _FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-5),
                                           (8, 256, True), (1, 1, True),
                                           (1000, 1000, True)])
 def test_flash_attention_matches_plain(cuda, dtype, d, sq, sk, causal):
-    """Online softmax in tiles against the plain softmax (f32 on the CUDA
-    cores, bf16 and f16 on wgmma with P split into two terms): f32 inside,
-    sums in another order; f32 at rtol = atol = 2e-4.  Both round once to
-    the output type, so bf16 outputs differ by at most one bf16 step, 2^-7
-    of the value (rtol = 1e-2, atol = 1e-5), and f16 outputs by one f16
-    step, 2^-10 of the value (rtol = 2e-3, atol = 1e-5).  (80, 80) leaves
-    a ragged tile of queries and keys; in (64, 200) the last key tile is
-    ragged, and the wgmma kernel's TMA fills it with zeros, which must be
-    masked; (300, 300), (8, 256), (1, 1) and (1000, 1000) are shapes the
-    reference sends to its plain version; D 16 and 48 run padded to 64,
-    one launch."""
+    """Online softmax in tiles against the plain softmax (f32 on the tensor
+    cores as three TF32 products, bf16 and f16 on wgmma with P split into
+    two terms): f32 inside, sums in another order; f32 at rtol = atol =
+    2e-4.  Both round once to the output type, so bf16 outputs differ by at
+    most one bf16 step, 2^-7 of the value (rtol = 1e-2, atol = 1e-5), and
+    f16 outputs by one f16 step, 2^-10 of the value (rtol = 2e-3, atol =
+    1e-5).  (80, 80) leaves a ragged tile of queries and keys; in (64, 200)
+    the last key tile is ragged, and TMA fills it with zeros, which must
+    be masked; (300, 300), (8, 256), (1, 1) and (1000, 1000) are shapes
+    the reference sends to its plain version.  bf16 and f16 run D 16 and
+    32 as they are and 20 and 48 padded to 32 and 64; f32 runs every D
+    below 64 padded to 64; 100 and 200 run padded to 128 and 256; one
+    launch."""
     q, k, v = (a.to(dtype) for a in _qkv(3, sq, sk, d, seed=d + sq))
     want = TRef.flash_attention_ref(q, k, v, causal=causal)
     before = _build.LAUNCHES["flash_attention"]
