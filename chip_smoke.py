@@ -27,16 +27,18 @@ nothing of the JAX package.  The script
    instance of the attention kernels (the wgmma kernel in bf16 and f16 at
    head dims 16, 32, 64, 128, 192 and 256; the wide wgmma kernel in bf16
    and f16 at 384 and 512; the f32 TF32 wgmma kernel at 64; the mma.sync
-   kernel in f32 at 128, 192, 256, 384 and 512 and in each type past 512)
+   kernel in f32 at 128, 192, 256, 384 and 512 and in each type past 512;
+   the split kernel in bf16 and f16 at 16 to 256 and in f32 at 64 to 256)
    spilled nothing, every instance of the three wgmma kernels shows HGMMA
-   and UTMALDG, and every instance of the mma.sync kernel HMMA and
-   UTMALDG.  Then the shapes the reference's kernels
+   and UTMALDG, every instance of the mma.sync kernel HMMA and UTMALDG,
+   and every instance of the split kernel HMMA and LDGSTS (cp.async).  Then the shapes the reference's kernels
    do not take (``shape_kernel_checks``), each bitwise against its plain
    version at full width and timed: the encode, the single decode and the
    batched decode (16 senders) at q = 2 (1-bit colors), 3 and 12 (not
    powers of two), the encode and the single decode at n = 31, and the FWHT over
-   (4,239, 65,536), (264, 1,048,576) and (138,922,752, 2), f32 and bf16
-   (rows past 16,384 in two launches);
+   (8,479, 32,768), (4,239, 65,536), (1,059, 262,144), (264, 1,048,576)
+   and (138,922,752, 2), f32 and bf16 (rows of 2^15 to 2^18 in one launch
+   of the cluster kernel, rows of 2^20 in two);
 3. runs round A: an unrotated, unanchored round of 16 clients over a
    277,845,504-dimensional vector (the gradient of whisper-small, the
    smallest model the repo configures), q = 16, bucket = 4096, y0 = 0.25;
@@ -124,9 +126,9 @@ nothing of the JAX package.  The script
    against their plain versions at the phase's largest DP hop
    (33,972,224 coordinates) and at a butterfly's shapes (there also timed
    from a CUDA graph, and the wrappers' host microseconds per call);
-6c. trains granite-moe-1b-a400m at full width and depth (24 layers,
-   d_model 1,024, 32 experts of d_ff 512, top-8, capacity factor 1.25,
-   vocab 49,155; 1,384,126,464 parameters) on the (dp 2, tp 2) mesh:
+6c. trains granite-moe-1b-a400m at full width, 12 of its 24 layers
+   (d_model 1,024, 32 experts of d_ff 512, top-8, capacity factor 1.25,
+   vocab 49,155) on the (dp 2, tp 2) mesh:
    sequence parallel (each TP rank routes 2,048 of its DP rank's 4,096
    tokens), 16 experts a TP rank behind two tiled all-to-alls a layer,
    the replicated leaves' gradients (the router's among them) psummed
@@ -159,16 +161,17 @@ nothing of the JAX package.  The script
    prompt prefilled into a ``decode_32k`` cache of 32,768 positions (the
    prefill's K/V moved into the decode layout by ``_place_prefill``), then
    greedy decode steps, the first re-feeding the prompt's last token:
-   ``serve_glm4_tp4``, glm4-9b at full width and depth (40 layers,
-   9,399,435,264 parameters) on (dp 1, tp 4) — g1 2 KV-head groups x g2 2
-   sequence shards, so the ``wq`` subgroup gather and the flash-decoding
-   merge run — batch 16 (cut from 128), a 256-token prompt and 8 steps,
-   with the bf16 cache and then the int8 one (fed the bf16 run's tokens);
-   ``serve_granite_moe_tp``, granite-moe-1b-a400m at full width and depth
-   on (2, 2) (the DP weight gathers and ``_moe_decode``), batch 16, 256
-   and 4, both caches; ``serve_families``, mamba2-1.3b (8 layers),
-   recurrentgemma-9b (3 layers) and whisper-small (full depth, its encoder
-   over 1,500 stub frames) on (2, 2), batch 4, 64 and 4.  Checks: every
+   ``serve_glm4_tp4``, glm4-9b at full width, 10 of its 40 layers, on
+   (dp 1, tp 4) — g1 2 KV-head groups x g2 2 sequence shards, so the
+   ``wq`` subgroup gather and the flash-decoding merge run — batch 16
+   (cut from 128), a 256-token prompt and 8 steps, with the bf16 cache
+   and then the int8 one (fed the bf16 run's tokens);
+   ``serve_granite_moe_tp``, granite-moe-1b-a400m at full width, 12 of
+   its 24 layers, on (2, 2) (the DP weight gathers and ``_moe_decode``),
+   batch 16, 256 and 2, both caches; ``serve_families``, mamba2-1.3b (4
+   layers),
+   recurrentgemma-9b (3 layers) and whisper-small (full depth, its
+   encoder over 1,500 stub frames) on (2, 2), batch 4, 64 and 2.  Checks: every
    TP rank returns the same tokens, ids below the vocab plus tp (its
    padding, the reference's own test's limit), every cache leaf of
    ``cache_struct``'s shape and dtype and finite, and the int8 cache
@@ -224,8 +227,13 @@ nothing of the JAX package.  The script
    f32, causal and not, and f16, causal); then small head dims (16, every
    smoke config's, and 32 in bf16, both built; 48 in f32, padded to 64)
    and shapes the reference sends to its plain version (Sq = Sk = 1,000,
-   causal, and 8 queries over 4,096 keys, at qwen3-32b's heads in bf16),
-   and head dims
+   causal, and 8 queries over 4,096 keys, at qwen3-32b's heads in bf16;
+   8 causal queries over 4,096 keys, which stay on the long kernels, at
+   qwen3-32b's heads in bf16 and granite-moe's in f32), few queries over
+   many keys (qwen3-32b's heads, one query over a
+   32,768-token cache, bf16; granite-moe's, 16 queries over 4,096 keys in
+   f16 and f32: with the 8-query case, the split kernel's paths,
+   ``csrc/flash_attention_split.cu``, one for each type), and head dims
    past 256 (16 heads, one sequence of 4,096, causal): 512 in bf16, f16
    and f32, and 320 in bf16 (padded to 384).  The bf16 and the f16 cases
    up to head dim 256 are the wgmma kernel's paths; the f32 ones up to 64
@@ -240,7 +248,8 @@ nothing of the JAX package.  The script
    tensor, so it runs 2 of BH at a time), times the plain version over
    all of BH in chunks of 2, and times ``scaled_dot_product_attention`` on
    the same tensors as the library call (used nowhere in the port; the
-   first of its backends that takes the shape, named), printing SDPA's
+   first of its backends that takes the shape, named; where the kernel has
+   a ``device_ms``, SDPA's back to back too), printing SDPA's
    own share of the kernel's limit against the plain version as
    information.  The bound counts the unpadded head dim's operations, at
    the tensor cores' bf16 rate for bf16 and f16 (with, as information,
@@ -270,7 +279,8 @@ kernel of a path that was not launched there fails the run, and the
 ``kernels`` line sums the counts of the paths over all ranks.  Its
 entries of the new shapes (``SHAPE_INSTANCES``) take their kernel's
 launches on the paths that run them at that width: the FWHT's rows of
-65,536 and 1,048,576 on the rotated paths of those buckets.  Any failed
+32,768 (q = 12), 65,536 and 1,048,576 on the rotated paths of those
+buckets.  Any failed
 check raises before the
 last line is printed.  Without a CUDA device, or without the port beside
 it, the script exits with a nonzero code and prints no result.
@@ -309,7 +319,8 @@ TRAIN_SEQ = 4096                 # train_4k's sequence (one per rank)
 TRAIN_HOP_N = 67_944_448         # the embedding's first RH hop (internvl2-1b)
 TP_MESH = (2, 2)                 # (dp, tp) of the TP phase, one card
 TRAIN_TP_STEPS = 2               # steps of the TP phase (cut from 3)
-MOE_ARCH = "granite-moe-1b-a400m"  # the MoE phase's model (full size)
+MOE_ARCH = "granite-moe-1b-a400m"  # the MoE phase's model (full width)
+MOE_LAYERS = 12                  # its training depth (cut from 24)
 MOE_STEPS = 2                    # steps of the MoE phase (cut from 3)
 FAMILY_RUNS = (                  # (arch, layers, steps, optimizer state)
     ("mamba2-1.3b", 4, 2, "float32"),     # cut from 8 for the time limit
@@ -319,15 +330,17 @@ WHISPER_DEC_SEQ = 448            # whisper-small's decoder tokens
 WHISPER_STEPS = 2                # whisper-small's full training steps
 SERVE_S_MAX = 32_768             # decode_32k's cache positions
 # the serving phases' runs: batch cut from decode_32k's 128; for the time
-# limit the prompts of glm4 and granite cut from 512 tokens and their
-# decode steps from 16 and 8 (the same code runs fewer times)
-SERVE_GLM4 = [dict(arch="glm4-9b", layers=None, mesh=(1, 4), batch=16,
+# limit glm4 cut from 40 layers to 10, granite-moe from 24 to 12, mamba2
+# from 48 to 4, the prompts of glm4 and granite from 512 tokens and the
+# decode steps of glm4, granite and the families from 16, 8 and 8 (the
+# same code runs fewer times)
+SERVE_GLM4 = [dict(arch="glm4-9b", layers=10, mesh=(1, 4), batch=16,
                    prompt=256, new=8, kv_quant=(False, True))]
-SERVE_GRANITE = [dict(arch=MOE_ARCH, layers=None, mesh=(2, 2), batch=16,
-                      prompt=256, new=4, kv_quant=(False, True))]
+SERVE_GRANITE = [dict(arch=MOE_ARCH, layers=12, mesh=(2, 2), batch=16,
+                      prompt=256, new=2, kv_quant=(False, True))]
 SERVE_FAMILIES = [dict(arch=a, layers=n, mesh=(2, 2), batch=4, prompt=64,
-                       new=4, kv_quant=(False,))
-                  for a, n in (("mamba2-1.3b", 8), ("recurrentgemma-9b", 3),
+                       new=2, kv_quant=(False,))
+                  for a, n in (("mamba2-1.3b", 4), ("recurrentgemma-9b", 3),
                                ("whisper-small", None))]
 TP_HOP_N = 33_972_224            # the TP phase's largest DP hop (embedding)
 SERVICE_CLIENTS = 8              # clients per service round
@@ -367,6 +380,15 @@ KERNEL_SOURCES = {
     "flash_attention_wide_f32": (
         "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
         "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_split": (
+        "src/repro_torch/kernels/csrc/flash_attention_split.cu",
+        "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_split_f16": (
+        "src/repro_torch/kernels/csrc/flash_attention_split.cu",
+        "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_split_f32": (
+        "src/repro_torch/kernels/csrc/flash_attention_split.cu",
+        "src/repro/kernels/flash_attention.py:62"),
 }
 # the instances of the shapes the reference's kernels do not take, each
 # with its entry in the ``kernels`` line: (kernel, the color space q of a
@@ -390,6 +412,7 @@ SHAPE_INSTANCES = {
     "lattice_encode_n31": ("lattice_encode", 16, ("n31",)),
     "lattice_decode_n31": ("lattice_decode", 16, ("n31",)),
     "fwht_d2": ("fwht", None, ("n31_rot",)),
+    "fwht_d32768": ("fwht", None, ("q12_rot",)),
     "fwht_d65536": ("fwht", None, ("d65536_rot",)),
     "fwht_d1048576": ("fwht", None, ("d1048576_rot",)),
 }
@@ -441,6 +464,20 @@ ATTENTION_CASES = (
      (True,)),
     ("qwen3-32b heads, Sq 8 over Sk 4,096", 64, 8, 128, (8, 4_096), 1,
      "bfloat16", (False,)),
+    # few causal queries (each sees at most Sq keys) stay on the kernels
+    # of long query tiles: the bf16 wgmma kernel and the f32 TF32 one
+    ("qwen3-32b heads, causal Sq 8 over Sk 4,096", 64, 8, 128, (8, 4_096),
+     1, "bfloat16", (True,)),
+    ("granite-moe-1b-a400m heads, causal Sq 8 over Sk 4,096", 16, 8, 64,
+     (8, 4_096), 8, "float32", (True,)),
+    # few queries over many keys (the split kernel): one decode step over
+    # a 32k cache, and 16 queries in f16 and f32
+    ("qwen3-32b decode, Sq 1 over Sk 32,768", 64, 8, 128, (1, 32_768), 1,
+     "bfloat16", (False,)),
+    ("granite-moe-1b-a400m heads, Sq 16 over Sk 4,096", 16, 8, 64,
+     (16, 4_096), 8, "float16", (False,)),
+    ("granite-moe-1b-a400m heads, Sq 16 over Sk 4,096", 16, 8, 64,
+     (16, 4_096), 8, "float32", (False,)),
     # past head dim 256 (no config of the repo's has it; the reference's
     # kernel takes any D): the wide kernels, D 320 padded to 384
     ("head dim 512, 16 heads", 16, 16, 512, 4_096, 1, "bfloat16", (True,)),
@@ -465,8 +502,26 @@ ATTENTION_WIDE = {("bfloat16", 512): "flash_attention_wgmma_wide",
                   ("float32", 512): "flash_attention_wide_f32"}
 
 
-def attention_kernel(dt: str, hd: int) -> str:
-    """The ``kernels``-line entry of attention in ``dt`` at head dim hd."""
+# with at most 16 queries and no causal mask, up to head dim 256, the
+# split kernel: one entry for each dtype
+ATTENTION_SPLIT = {"bfloat16": "flash_attention_split",
+                   "float16": "flash_attention_split_f16",
+                   "float32": "flash_attention_split_f32"}
+
+
+def attention_kernel(dt: str, hd: int, tokens, causals) -> str:
+    """The ``kernels``-line entry of attention in ``dt`` at head dim hd
+    over ``tokens`` (S, or (Sq, Sk)) with each of ``causals``, routed as
+    ``kernel_of`` routes the calls (all of a case's to one kernel)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import SPLIT_LIB, kernel_of
+
+    sq = tokens[0] if isinstance(tokens, tuple) else tokens
+    libs = {kernel_of(getattr(torch, dt), hd, sq, c)[0] for c in causals}
+    check(len(libs) == 1, f"the calls of one attention case take {libs}")
+    if libs.pop() == SPLIT_LIB:
+        return ATTENTION_SPLIT[dt]
     narrow = 64 if dt == "float32" else 256
     return ATTENTION_WIDE[(dt, hd)] if hd > narrow else ATTENTION_KERNEL[dt]
 # the wgmma kernels' P.V takes two products (P split into hi and lo), so
@@ -608,9 +663,10 @@ def attention_sass(_build) -> dict:
     """Every instance of the attention kernels, one per (input type, head
     dim): the three wgmma kernels' (the f32 one in TF32) must show HGMMA
     (wgmma) and UTMALDG (TMA loads) in their SASS, the mma.sync kernel's
-    HMMA and UTMALDG, and none of the four libraries may have spilled (0
-    spill-store bytes in ptxas's report of this build, where this process
-    built it, and no local memory in ``cuobjdump -res-usage``)."""
+    HMMA and UTMALDG, the split kernel's HMMA and LDGSTS (cp.async), and
+    none of the five libraries may have spilled (0 spill-store bytes in
+    ptxas's report of this build, where this process built it, and no
+    local memory in ``cuobjdump -res-usage``)."""
     from repro_torch.kernels.flash_attention import (F32_HEAD_DIMS,
                                                      F32_WGMMA_HEAD_DIM,
                                                      GROUP, HEAD_DIMS,
@@ -632,7 +688,12 @@ def attention_sass(_build) -> dict:
         "flash_attention_wide": [
             f"flash_wide_kernelIfLi{d}E" for d in F32_HEAD_DIMS
             if d > F32_WGMMA_HEAD_DIM] + [
-            f"flash_wide_kernelI{t}Li{GROUP}E" for t in halves]}
+            f"flash_wide_kernelI{t}Li{GROUP}E" for t in halves],
+        "flash_attention_split": [
+            f"flash_split_kernelI{t}Li{d}E" for t in halves
+            for d in HEAD_DIMS] + [
+            f"flash_split_kernelIfLi{d}E" for d in F32_HEAD_DIMS
+            if d <= HEAD_DIMS[-1]]}
     out = {}
     for lib, names in instances.items():
         parts = re.split(r"Function : (\S+)", cuobjdump(_build, lib, "-sass"))
@@ -647,12 +708,14 @@ def attention_sass(_build) -> dict:
             # the products and loads, then (information) what a score costs
             # beside them: exponentials, conversions, shuffles, barriers
             c = sass_counts(bodies[fn], ("HGMMA", "HMMA", "UTMALDG",
-                                         "WARPGROUP.DEPBAR", "MUFU.EX2",
-                                         "F2FP", "SHFL", "BAR"))
+                                         "LDGSTS", "LDSM", "WARPGROUP.DEPBAR",
+                                         "MUFU.EX2", "F2FP", "SHFL", "BAR"))
             c.update(usage.get(fn, {}), spill_store_bytes=spills.get(fn))
-            mma = "HMMA" if lib == "flash_attention_wide" else "HGMMA"
-            check(c[mma] > 0 and c["UTMALDG"] > 0,
-                  f"{fn}'s SASS has no {mma} or no UTMALDG: {c}")
+            mma = ("HMMA" if lib in ("flash_attention_wide",
+                                     "flash_attention_split") else "HGMMA")
+            load = "LDGSTS" if lib == "flash_attention_split" else "UTMALDG"
+            check(c[mma] > 0 and c[load] > 0,
+                  f"{fn}'s SASS has no {mma} or no {load}: {c}")
             check(c.get("local") == 0 and not c["spill_store_bytes"],
                   f"{lib} {fn} spilled: {c}")
             out[inst] = c
@@ -682,14 +745,21 @@ def fwht_sass(_build) -> dict:
     check(len(main) == 1, f"no single {FWHT_MAIN} in cuobjdump -res-usage")
     check(all(u["local"] == 0 for u in usage.values()),
           "an fwht kernel uses local memory (ptxas spilled)")
-    # the further launches of rows past 16,384 (one instance a bit count
-    # and output)
-    high = [u["registers"] for name, u in usage.items()
-            if "fwht_high_kernel" in name]
-    check(high, "no fwht_high_kernel in cuobjdump -res-usage")
+    # the cluster kernel of rows of 2^15 to 2^18 (one instance a row
+    # length, type, alignment and, at 2^18, first launch of a longer row)
+    # and the further launches of rows past 2^18 (one a bit count and
+    # output)
+    found = {}
+    for kind in ("fwht_cluster_kernel", "fwht_high_kernel"):
+        found[kind] = [u["registers"] for name, u in usage.items()
+                       if kind in name]
+        check(found[kind], f"no {kind} in cuobjdump -res-usage")
+    cluster, high = found.values()
     # the launcher's dynamic shared memory at d = 4096: one f32 tile
     return dict(function=FWHT_MAIN, counts=counts, **main[0],
                 dynamic_shared_bytes=4 * 4096, instances=len(usage),
+                cluster_instances=len(cluster),
+                cluster_max_registers=max(cluster),
                 high_instances=len(high), high_max_registers=max(high))
 
 
@@ -1017,7 +1087,7 @@ def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
     # the yardstick: one dense product with the scaled Hadamard matrix
     # (full f32, TF32 off), timed here and used nowhere in the port
     torch.backends.cuda.matmul.allow_tf32 = False
-    h = ref.fwht_ref(torch.eye(bucket, device=dev))
+    h = hadamard(torch, bucket, dev)
     lib = cuda_ms(torch, lambda: torch.matmul(xb, h), reps=3)
     del h
     xh = xb.to(torch.bfloat16)
@@ -1046,7 +1116,8 @@ def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
 # and FWHT rows of 2 and past 16,384: (rows, d) of each FWHT check
 SHAPE_QS = (2, 3, 12)
 SHAPE_N = 31
-FWHT_SHAPES = ((4_239, 1 << 16), (264, 1 << 20), (FULL_D // 2, 2))
+FWHT_SHAPES = ((8_479, 1 << 15), (4_239, 1 << 16), (1_059, 1 << 18),
+               (264, 1 << 20), (FULL_D // 2, 2))
 
 
 def encode_check(torch, x, u, sides, q: int, bucket: int) -> dict:
@@ -1145,14 +1216,37 @@ def single_decode_check(torch, x, u, sides, q: int, bucket: int, g) -> dict:
                 device_ms=dms, reps=reps, share_of_bound=b / dms)
 
 
+# the longest FWHT row timed against a product with the Hadamard matrix
+# (17 GB of f32 at 2^16)
+LIBRARY_FWHT_D = 1 << 16
+
+
+def hadamard(torch, d: int, dev):
+    """The scaled Hadamard matrix of order d (a power of two), f32, in
+    natural order: the Kronecker power of [[1, 1], [1, -1]] times
+    f32(1/sqrt(d)), the plain FWHT of the identity bit for bit (the plain
+    version's temporaries of the identity would not fit at 2^16)."""
+    import numpy as np
+
+    h2 = torch.tensor([[1.0, 1.0], [1.0, -1.0]], device=dev)
+    h = torch.ones((1, 1), device=dev)
+    for _ in range(d.bit_length() - 1):
+        h = torch.kron(h, h2)
+    return h.mul_(float(np.float32(1.0 / np.sqrt(d))))
+
+
 def fwht_shape_check(torch, rows: int, d: int, g) -> dict:
     """The FWHT over (rows, d) f32 and bf16: bitwise against its plain
     version on the leading rows that hold ``SLICE`` coordinates, launches
     counted, timed at the full shape.  The bound is one read and one write
-    of the data; rows past 16,384 take 1 + ``fwht_passes`` launches, each
-    a read and a write.  The yardstick (``library_ms``) is one product
-    with the scaled Hadamard matrix where it fits (d = 2); past 16,384 the
-    matrix alone (d^2 f32) would not fit on the card: none."""
+    of the data; rows of up to 2^18 take one launch (past 16,384 the
+    cluster kernel), longer rows 1 + ``fwht_passes``, each a read and a
+    write.  The yardstick (``library_ms``) is one f32 product with the
+    scaled Hadamard matrix (TF32 off) up to ``LIBRARY_FWHT_D``, the matrix
+    built in blocks of rows (``hadamard``); past it the matrix alone (d^2
+    f32, 275 GB at 2^18) would not fit on the card: none.  The product's
+    largest difference from the plain version on the compared rows is
+    ``library_max_abs_err`` (information)."""
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.fwht import fwht_passes
 
@@ -1166,8 +1260,10 @@ def fwht_shape_check(torch, rows: int, d: int, g) -> dict:
         y = ops.fwht(xt)
         torch.cuda.synchronize()
         launches = _build.LAUNCHES["fwht"] - before
-        check(launches == 1 + len(fwht_passes(d)),
-              f"fwht of ({rows}, {d}): {launches} launches")
+        want_launches = 1 + len(fwht_passes(d))
+        check(launches == want_launches,
+              f"fwht of ({rows}, {d}): {launches} launches, not "
+              f"{want_launches}")
         it = torch.int32 if dt == torch.float32 else torch.int16
         want = ref.fwht_ref(xt[:cmp_rows])
         check(torch.equal(y[:cmp_rows].view(it), want.view(it)),
@@ -1194,10 +1290,13 @@ def fwht_shape_check(torch, rows: int, d: int, g) -> dict:
             out["bound_by"] = by
         del xt
     lib = None
-    if d == 2:
+    if d <= LIBRARY_FWHT_D:
         torch.backends.cuda.matmul.allow_tf32 = False
-        h = ref.fwht_ref(torch.eye(d, device=dev))
-        lib = cuda_ms(torch, lambda: torch.matmul(x, h), reps=3)
+        h = hadamard(torch, d, dev)
+        lib = cuda_ms(torch, lambda: torch.matmul(x, h), reps=1)
+        out["library_max_abs_err"] = max_abs_err(
+            torch, torch.matmul(x[:cmp_rows], h), ref.fwht_ref(x[:cmp_rows]))
+        del h
     del x
     torch.cuda.empty_cache()
     out.update(library_ms=lib, shape=f"({rows}, {d}) f32 and bf16",
@@ -3128,8 +3227,8 @@ def train_moe_rank_main(torch, rank: int, world: int, seed: int) -> dict:
     """One rank's share of the MoE phase; every check raises.
 
     The main path: the port's ``Trainer`` for MOE_STEPS steps of
-    granite-moe-1b-a400m at full width and depth on the (dp 2, tp 2) mesh,
-    sequence parallel (2,048 of a DP rank's 4,096 tokens routed by each TP
+    granite-moe-1b-a400m at full width, MOE_LAYERS deep, on the (dp 2,
+    tp 2) mesh, sequence parallel (2,048 of a DP rank's 4,096 tokens routed by each TP
     rank), its 32 experts split 16 a TP rank behind two tiled all-to-alls
     a layer, the replicated leaves' gradients (the router among them)
     psummed over TP through the quantized butterfly, prefetching FSDP with
@@ -3154,7 +3253,8 @@ def train_moe_rank_main(torch, rank: int, world: int, seed: int) -> dict:
     torch.use_deterministic_algorithms(True)
     dp_axes, tp_axis = mesh_axes(TP_MESH)
     dp, tp = TP_MESH
-    cfg = registry.config(MOE_ARCH)
+    cfg = dataclasses.replace(registry.config(MOE_ARCH),
+                              n_layers=MOE_LAYERS)
     ctx = S.ShardCtx(tp=tp, dp=dp, dp_axes=dp_axes, tp_axis=tp_axis,
                      qcfg=C.QSyncConfig(q=16, bucket=4096), grad_sync="lq",
                      seq_parallel=True, quantize_tp_grads=True, prefetch=True)
@@ -3279,9 +3379,9 @@ def train_moe_rank_main(torch, rank: int, world: int, seed: int) -> dict:
 
 def train_granite_moe_tp(seed: int) -> dict:
     """The MoE phase: four ranks on the one card over gloo as a (dp 2,
-    tp 2) mesh, the port's Trainer at granite-moe-1b-a400m's full width and
-    depth; returns the encode and single-decode launches of the main path,
-    summed over the ranks."""
+    tp 2) mesh, the port's Trainer at granite-moe-1b-a400m's full width,
+    MOE_LAYERS deep; returns the encode and single-decode launches of the
+    main path, summed over the ranks."""
     t0 = time.perf_counter()
     ranks = _spawn_ranks(train_moe_rank_main, (seed,),
                          "train_granite_moe_tp")
@@ -3298,7 +3398,7 @@ def train_granite_moe_tp(seed: int) -> dict:
                      "sent_dp", "sent_tp_sync", "sent_tp_act")}
                    for r in ranks])
     say("train_granite_moe_tp", mesh=dict(dp=TP_MESH[0], tp=TP_MESH[1]),
-        arch=MOE_ARCH, layers=24, experts=32, experts_per_tp_rank=16,
+        arch=MOE_ARCH, layers=MOE_LAYERS, experts=32, experts_per_tp_rank=16,
         seq=TRAIN_SEQ, global_batch=TP_MESH[0], steps=MOE_STEPS,
         seq_parallel=True, quantize_tp_grads=True,
         wall_s=time.perf_counter() - t0, launches=launches,
@@ -4334,7 +4434,8 @@ def attention(torch, seed: int):
     out = {}
     groups = {}
     for c in ATTENTION_CASES:
-        groups.setdefault(attention_kernel(c[6], c[3]), []).append(c)
+        groups.setdefault(attention_kernel(c[6], c[3], c[4], c[7]),
+                          []).append(c)
     for name, cases_in in groups.items():
         dt = cases_in[0][6]
         cases, launches, path_s = attention_path(torch, ops, _build,
@@ -4403,7 +4504,10 @@ def attention(torch, seed: int):
             # the unpadded head dim's operations, whatever width ran
             scores = bh * attention_pairs(sq, sk, causal)
             useful = 4 * hd * scores
-            nbytes = 2 * bh * (sq + sk) * hd * elt
+            # Q read and O written, and the keys and values the mask
+            # leaves (causal: the first Sq of them)
+            keys = min(sq, sk) if causal else sk
+            nbytes = 2 * bh * (sq + keys) * hd * elt
             extra = {}
             if dt != "float32":
                 # f16 has bf16's dense tensor-core rate
@@ -4424,6 +4528,8 @@ def attention(torch, seed: int):
                                   TF32_OPS_PER_S), f32_rate)
             if "device_ms" in c:
                 extra["device_share_of_bound"] = b / c["device_ms"]
+                # SDPA back to back too, as the kernel was
+                extra["library_device_ms"], _ = device_ms(torch, library)
             c.update(kernel=name, shape=f"BH={bh}, Sq={sq}, Sk={sk}, "
                      f"D={hd}", plain_ms=plain_ms, bound_ms=b, bound_by=by,
                      share_of_bound=b / c["ms"], library_ms=lib_ms,

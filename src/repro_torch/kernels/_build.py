@@ -39,7 +39,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lattice_decode", "lattice_decode_any", "lattice_encode",
            "lattice_encode_any", "fwht", "flash_attention",
            "flash_attention_wgmma", "flash_attention_wgmma_wide",
-           "flash_attention_wide")
+           "flash_attention_wide", "flash_attention_split")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

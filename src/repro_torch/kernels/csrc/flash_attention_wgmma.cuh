@@ -3,7 +3,9 @@
 // flash_attention_wgmma_wide.cu (384 and 512) and flash_attention.cu (f32
 // in TF32, up to 64) take all of it, the mma.sync kernel
 // flash_attention_wide.cu the mbarriers, the TMA loads, the TF32 split and
-// the driver's tensor-map encoder.  mbarriers, TMA loads and the tensor maps
+// products and the driver's tensor-map encoder, the split kernel
+// flash_attention_split.cu the TF32 split and products, the input type's
+// conversions and the online-softmax step.  mbarriers, TMA loads and the tensor maps
 // they read, wgmma shared-memory descriptors (rows of 32, 64 or 128 bytes,
 // each with the swizzle of its width), the wgmma instructions in bf16 and
 // f16, the input type's conversions (Elem<T>) and the online-softmax step
@@ -325,6 +327,29 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   const float r = __fsub_rn(x, __uint_as_float(hi));
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in three tf32 products, the small terms first: a_lo.b_hi +
+// a_hi.b_lo + a_hi.b_hi (a_lo.b_lo, below 2^-22 of the product, is left
+// out)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
 }
 
 // The online-softmax step of one key tile on a thread's N S fragments

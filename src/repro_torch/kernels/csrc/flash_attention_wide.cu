@@ -136,29 +136,6 @@ __device__ __forceinline__ void st2(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-// c (16 x 8, f32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a . b in three tf32 products, the small terms first: a_lo.b_hi +
-// a_hi.b_lo + a_hi.b_hi (a_lo.b_lo, below 2^-22 of the product, is left
-// out)
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
-
 // an element of shared memory that is exact in TF32 (bf16, f16), as TF32
 template <typename T>
 __device__ __forceinline__ uint32_t exact_tf32(const T* p) {

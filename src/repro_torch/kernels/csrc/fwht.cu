@@ -51,7 +51,30 @@
 //
 // d = 1 and 2 are rows of the same tile kernel with no stage or one.
 //
-// Rows longer than a tile, d = 2^L with L > 14, take several launches
+// Rows of 2^15 to 2^18 take one launch of fwht_cluster_kernel: a thread
+// block cluster of C = d / 16384 blocks (2 to 16; 16 is a non-portable
+// cluster size, allowed at launch) owns a row, each block a chunk of
+// 16,384 consecutive coordinates in 64 KB of f32 shared memory.  A block
+// of 512 threads holds 32 coordinates a thread and runs index bits 0-13
+// of its chunk in three register passes (bits 0-4, 5-9, 10-13; the last
+// pass holds bits 9-13) with two transposes through shared memory in
+// between (bank bits 2-4 XORed with index bits 5-7: the pass-0 16-byte
+// stores and every 4-byte access are free of conflicts), then writes its
+// f32 chunk to shared memory in natural order.  After a cluster barrier,
+// block r reads its 1/C of the columns (the low 14 index bits) from all C
+// chunks through distributed shared memory, in runs of 16 or 8 bytes that
+// a warp reads as one contiguous run of a peer's chunk, runs the stages of
+// index bits 14 .. 13 + log2(C) in registers (bit 14 first), scales once
+// and stores its columns of every chunk.  A second cluster barrier (for
+// f32 out arrived at after the reads and waited on after the stores)
+// keeps every block's shared memory alive until its peers have read it.
+// So a row is read once and written once, with no f32 scratch for bf16; the
+// stage order and the single scale keep it bitwise with the plain
+// version.  Two 512-thread blocks an SM (at most 64 registers a thread,
+// 128 KB of shared memory) let one block's loads run while the other
+// exchanges; the distributed reads add (C - 1) / C of a row a block.
+//
+// Rows longer than 2^18, d = 2^L with L > 18, take several launches
 // (fwht_pass_launch).  The first is the tile kernel over index bits 0-13
 // of each row (rows of 16384), unscaled, writing f32 (into the output for
 // f32, into a scratch tensor the wrapper allocates for bf16).  Each further
@@ -69,8 +92,10 @@
 // A pointer that is not on a 16-byte boundary (a view that starts inside a
 // row of a small bf16 tensor) takes the same kernel with one-element loads
 // and stores.  No allocation; the launch goes on the caller's stream.
+#include <climits>
 #include <cstdint>
 #include <type_traits>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -279,6 +304,169 @@ fwht_kernel(const T* __restrict__ x, TO* __restrict__ out, int64_t n, float scal
   }
 }
 
+// Rows of 2^15 .. 2^18 in one launch: a cluster of C = 2^(L - 14) blocks a
+// row, each a chunk of kChunk coordinates, 32 a thread.
+constexpr int kChunkLog2 = 14, kChunk = 1 << kChunkLog2;
+constexpr int kClusterThreads = 512, kClusterRegs = 32;
+
+// Shared-memory word of chunk index i in the transposes: bank bits 2-4
+// XOR index bits 5-7.  Linear; keeps bits 0-1, so 16-byte runs stay whole.
+__device__ __forceinline__ int swz32(int i) { return i ^ (((i >> 5) & 7) << 2); }
+
+// The stages over register bits LO .. HI - 1 of 32 registers, lowest first.
+template <int LO, int HI>
+__device__ __forceinline__ void reg_stages32(float (&v)[kClusterRegs]) {
+#pragma unroll
+  for (int j = LO; j < HI; ++j)
+#pragma unroll
+    for (int r = 0; r < kClusterRegs; ++r) {
+      if (r & (1 << j)) continue;
+      const float a = v[r], b = v[r | (1 << j)];
+      v[r] = __fadd_rn(a, b);
+      v[r | (1 << j)] = __fsub_rn(a, b);
+    }
+}
+
+// N (2 or 4) consecutive values rounded to TO and stored: one 8- or 16-byte
+// store where the pointers are on 16-byte boundaries, else one a value.
+template <typename TO, int N, bool VEC_IO>
+__device__ __forceinline__ void store_n(TO* p, const float* v) {
+  if constexpr (!VEC_IO) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) Io<TO>::store1(p + c, v[c]);
+  } else if constexpr (std::is_same_v<TO, float>) {
+    if constexpr (N == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    if constexpr (N == 4) {
+      __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                             __floats2bfloat162_rn(v[2], v[3])};
+      *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+    }
+  }
+}
+
+// One row of 2^L (15 <= L <= 18) per cluster of C blocks, block rank r the
+// row's chunk r.
+template <typename T, int L, bool VEC_IO>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+fwht_cluster_kernel(const T* __restrict__ x, T* __restrict__ out, float scale) {
+  namespace cg = cooperative_groups;
+  constexpr int CL = L - kChunkLog2, C = 1 << CL;   // cluster bits, blocks
+  constexpr int W = kChunk / C;                      // columns a block owns
+  constexpr int CP = kClusterRegs / C;               // columns a thread owns,
+  constexpr int VW = CP < 4 ? CP : 4;                // in runs of VW
+  constexpr int G = CP / VW;
+  constexpr int VI = Io<T>::VEC;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int64_t g0 = (int64_t)blockIdx.x << kChunkLog2;         // the chunk
+  const int64_t row0 = g0 - ((int64_t)rank << kChunkLog2);      // its row
+  float v[kClusterRegs];
+
+  // pass 0: the thread's 32 consecutive coordinates, index bits 0-4
+#pragma unroll
+  for (int k = 0; k < kClusterRegs / VI; ++k) {
+    const int64_t g = g0 + (tid << 5) + k * VI;
+    if constexpr (VEC_IO) {
+      Io<T>::load(x + g, v + k * VI);
+    } else {
+#pragma unroll
+      for (int c = 0; c < VI; ++c) v[k * VI + c] = Io<T>::load1(x + g + c);
+    }
+  }
+  reg_stages32<0, 5>(v);
+  {
+    // eight 16-byte stores: swz32 XORs the run index with tid bits 0-2
+    float4* sm4 = reinterpret_cast<float4*>(sm);
+    const int base = swz32(tid << 5) >> 2;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      sm4[base ^ c] = make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2],
+                                  v[4 * c + 3]);
+  }
+  __syncthreads();
+  // pass 1: registers index bits 5-9, lanes bits 0-4, warps bits 10-13
+  const int t1 = (tid & 31) | ((tid >> 5) << 10);
+#pragma unroll
+  for (int r = 0; r < kClusterRegs; ++r) v[r] = sm[swz32(t1 | (r << 5))];
+  reg_stages32<0, 5>(v);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kClusterRegs; ++r) sm[swz32(t1 | (r << 5))] = v[r];
+  __syncthreads();
+  // pass 2: registers index bits 9-13 (bit 9 done), the thread bits 0-8
+#pragma unroll
+  for (int r = 0; r < kClusterRegs; ++r) v[r] = sm[swz32(tid | (r << 9))];
+  reg_stages32<1, 5>(v);
+  __syncthreads();
+  // the chunk, unscaled f32, in natural order for the peers
+#pragma unroll
+  for (int r = 0; r < kClusterRegs; ++r) sm[tid | (r << 9)] = v[r];
+  cluster.sync();
+
+  // this block's columns of every chunk: run g of VW columns at rank * W +
+  // (g * kClusterThreads + tid) * VW, a warp's runs contiguous; v[(p * G +
+  // g) * VW + c] holds column c of run g of chunk p
+#pragma unroll
+  for (int p = 0; p < C; ++p) {
+    const float* peer = cluster.map_shared_rank(sm, p);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int j = rank * W + (g * kClusterThreads + tid) * VW;
+      float* d = v + (p * G + g) * VW;
+      if constexpr (VW == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(peer + j);
+        d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(peer + j);
+        d[0] = t.x; d[1] = t.y;
+      }
+    }
+  }
+  // this block has read its peers; its own shared memory must stay until
+  // they have read it too.  f32 out: arrive now, wait after the stores;
+  // bf16 out: one barrier after the stores (each the faster of the two for
+  // its type, timed in turns on an H100)
+  constexpr bool kEarly = std::is_same_v<T, float>;
+  if constexpr (kEarly)
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  // the stages of index bits 14 .. 13 + CL: bit b of the chunk index
+#pragma unroll
+  for (int b = 0; b < CL; ++b)
+#pragma unroll
+    for (int p = 0; p < C; ++p) {
+      if (p & (1 << b)) continue;
+#pragma unroll
+      for (int e = 0; e < CP; ++e) {
+        const float a = v[p * CP + e], bb = v[(p | (1 << b)) * CP + e];
+        v[p * CP + e] = __fadd_rn(a, bb);
+        v[(p | (1 << b)) * CP + e] = __fsub_rn(a, bb);
+      }
+    }
+#pragma unroll
+  for (int r = 0; r < kClusterRegs; ++r) v[r] = __fmul_rn(v[r], scale);
+#pragma unroll
+  for (int p = 0; p < C; ++p)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int j = rank * W + (g * kClusterThreads + tid) * VW;
+      store_n<T, VW, VEC_IO>(out + row0 + ((int64_t)p << kChunkLog2) + j,
+                              v + (p * G + g) * VW);
+    }
+  if constexpr (kEarly)
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  else
+    cluster.sync();
+}
+
 // Tile of a further launch of a row of 2^L > 2^14: 4096 elements, 2^K rows
 // of index bits b0 .. b0 + K - 1 by C = 4096 / 2^K consecutive columns.
 constexpr int kHighTile = 4096, kHighThreads = 256;
@@ -423,6 +611,41 @@ int launch_l(const void* x, void* out, int64_t rows, float scale, bool vec,
   return (int)cudaGetLastError();
 }
 
+// Rows of 2^L, 15 <= L <= 18: C = 2^(L - 14) blocks a row in clusters of C
+// (16 is past the portable 8: allowed on the kernel first).
+template <typename T, int L>
+int launch_cluster(const void* x, void* out, int64_t rows, float scale,
+                   bool vec, cudaStream_t stream) {
+  constexpr int C = 1 << (L - kChunkLog2);
+  const int64_t blocks = rows * C;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = vec ? fwht_cluster_kernel<T, L, true>
+                    : fwht_cluster_kernel<T, L, false>;
+  const size_t smem = sizeof(float) * kChunk;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                         static_cast<T*>(out), scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, void* out, int64_t rows, int log2d, float scale,
            cudaStream_t stream) {
@@ -444,6 +667,10 @@ int launch(const void* x, void* out, int64_t rows, int log2d, float scale,
     case 12: return launch_l<T, 12>(x, out, rows, scale, vec, stream);
     case 13: return launch_l<T, 13>(x, out, rows, scale, vec, stream);
     case 14: return launch_l<T, 14>(x, out, rows, scale, vec, stream);
+    case 15: return launch_cluster<T, 15>(x, out, rows, scale, vec, stream);
+    case 16: return launch_cluster<T, 16>(x, out, rows, scale, vec, stream);
+    case 17: return launch_cluster<T, 17>(x, out, rows, scale, vec, stream);
+    case 18: return launch_cluster<T, 18>(x, out, rows, scale, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -454,14 +681,15 @@ int launch(const void* x, void* out, int64_t rows, int log2d, float scale,
 // Any stale error is cleared first so that the code reports this launch
 // alone.  dtype: 0 = f32, 1 = bf16.
 
-// Rows of d = 2^log2d <= 16384, whole.  partial != 0 (log2d = 14 only):
-// the first launch of a longer row, which writes f32 to out, unscaled.
+// Rows of d = 2^log2d <= 2^18, whole (past 16,384 in clusters).  partial
+// != 0 (log2d = 14 only): the first launch of a longer row, over its low 14
+// index bits, which writes f32 to out, unscaled.
 extern "C" int fwht_launch(const void* x, void* out, int64_t rows, int log2d,
                            float scale, int dtype, int partial,
                            void* stream) {
   cudaGetLastError();
   if (rows <= 0) return 0;
-  if (log2d < 0 || log2d > 14 || (partial && log2d != 14))
+  if (log2d < 0 || log2d > 18 || (partial && log2d != 14))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
@@ -475,7 +703,7 @@ extern "C" int fwht_launch(const void* x, void* out, int64_t rows, int log2d,
   return (int)cudaErrorInvalidValue;
 }
 
-// A further launch of rows longer than 16384: the stages of index bits
+// A further launch of rows longer than 2^18: the stages of index bits
 // b0 .. b0 + k - 1 (b0 >= 14, 1 <= k <= 8) of the f32 tensor `in` of n
 // elements (rows times d), in place.  out_dtype -1: not the last launch
 // (out is in); 0 or 1: the last, which scales and writes f32 or bf16 to

@@ -19,6 +19,10 @@ Which kernel takes a call, by head dim D and input type:
   same numerics, the D columns split between two consumer warpgroups that
   share each score), built for D 384 and 512; past 512 the f32 kernel's
   library, in groups of 512 output columns.
+- any type up to D 256 with at most ``SPLIT_MAX_SQ`` queries and no causal
+  mask: ``csrc/flash_attention_split.cu`` (mma.sync, the keys split over
+  the grid by :func:`split_plan`, each block's partial softmax merged by
+  the last block of its row), built for the head dims above.
 
 Any other D is padded with zero columns to the next head dim built for
 its type (:func:`padded_head_dim`), one launch at the unpadded D's scale.
@@ -28,6 +32,7 @@ The plain torch version is
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -55,6 +60,21 @@ _KERNELS = {torch.float32: ("flash_attention", "flash_attention_launch"),
                              "flash_attention_wgmma_launch"),
             torch.float16: ("flash_attention_wgmma",
                             "flash_attention_wgmma_f16_launch")}
+# calls of at most SPLIT_MAX_SQ query rows, not causal, up to MAX_HEAD_DIM
+SPLIT_MAX_SQ = 16
+SPLIT_LIB = "flash_attention_split"
+_SPLIT = {torch.float32: (SPLIT_LIB, "flash_attention_split_launch"),
+          torch.bfloat16: (SPLIT_LIB, "flash_attention_split_bf16_launch"),
+          torch.float16: (SPLIT_LIB, "flash_attention_split_f16_launch")}
+# the split plan: about SPLIT_BLOCKS_PER_SM blocks an SM in all (f32, with
+# three TF32 products a key, two; on an H100 more splits, or a block count
+# that is no multiple of the SMs, were slower: each split adds a partial
+# to merge), no more than fit at once, at least SPLIT_MIN_KEYS keys a
+# split; the kernel's own limits come from its library (_split_limits)
+SPLIT_BLOCKS_PER_SM = {torch.float32: 2, torch.bfloat16: 1, torch.float16: 1}
+SPLIT_MIN_KEYS = 256
+# the split kernel's codes of the input types
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the same for head dims in (MAX_HEAD_DIM, GROUP]
 _WIDE = {torch.float32: ("flash_attention_wide",
                          "flash_attention_wide_launch"),
@@ -71,18 +91,92 @@ _GROUPED = {torch.float32: ("flash_attention_wide",
                             "flash_attention_wide_f16_launch")}
 
 
-def kernel_of(dtype: torch.dtype, d: int) -> "tuple[str, str]":
+def kernel_of(dtype: torch.dtype, d: int, sq: "int | None" = None,
+              causal: bool = True) -> "tuple[str, str]":
     """(library, C launcher) that attention of ``dtype`` at head dim ``d``
-    launches."""
+    launches: with ``sq`` <= SPLIT_MAX_SQ query rows and not ``causal``,
+    up to MAX_HEAD_DIM, the split kernel (for any Sk: :func:`split_plan`
+    gives one split where BH alone fills the card), else by ``d``."""
+    if sq is not None and sq <= SPLIT_MAX_SQ and not causal \
+            and d <= MAX_HEAD_DIM:
+        return _SPLIT[dtype]
     if d <= (F32_WGMMA_HEAD_DIM if dtype == torch.float32 else MAX_HEAD_DIM):
         return _KERNELS[dtype]
     return (_WIDE if d <= GROUP else _GROUPED)[dtype]
 
 
-def _launcher(dtype: torch.dtype, d: int):
-    lib, name = kernel_of(dtype, d)
+def split_plan(bh: int, sk: int, blocks: int, max_splits: int,
+               align: int) -> "tuple[int, int]":
+    """(splits, keys a split) of the split kernel over ``bh`` rows of ``sk``
+    keys for about ``blocks`` blocks in all: as many splits as make at most
+    that many (one where ``bh`` alone does), none shorter than
+    SPLIT_MIN_KEYS (but one) nor more than ``max_splits``; the keys a split
+    rounded up to a multiple of ``align``, and the splits recounted so that
+    none is empty."""
+    want = max(1, blocks // bh)
+    splits = max(1, min(want, -(-sk // SPLIT_MIN_KEYS), max_splits))
+    per = -(-sk // splits)
+    kps = -(-per // align) * align
+    return -(-sk // kps), kps
+
+
+@functools.cache
+def _split_limits(dtype: torch.dtype, d: int, index: int
+                  ) -> "tuple[int, int, int]":
+    """(blocks to aim at, most splits, key alignment) of the split kernel
+    at (``dtype``, built head dim ``d``) on card ``index``, the arguments
+    of :func:`split_plan` after Sk: SPLIT_BLOCKS_PER_SM of its type on each
+    SM, or as many as fit there at once where fewer do; the other two as
+    the library states them."""
+    fn = _build.load(SPLIT_LIB).flash_attention_split_limits
+    fn.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 3
+    fn.restype = _I
+    blocks, max_splits, align = _I(0), _I(0), _I(0)
+    with torch.cuda.device(index):
+        _build.check(fn(_DTYPE_CODES[dtype], d, ctypes.byref(blocks),
+                        ctypes.byref(max_splits), ctypes.byref(align)),
+                     SPLIT_LIB)
+    props = torch.cuda.get_device_properties(index)
+    return (min(SPLIT_BLOCKS_PER_SM[dtype], blocks.value)
+            * props.multi_processor_count, max_splits.value, align.value)
+
+
+# each (device, stream)'s scratch and counters of the split kernel: the
+# calls on one stream run in order, and the kernel leaves the counters 0
+_WORKSPACE: "dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]]" = {}
+
+
+def _split_workspace(device: torch.device, stream: int, n_part: int,
+                     n_count: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """f32 scratch of at least ``n_part`` and zeroed int32 counters of at
+    least ``n_count`` elements for a split launch on ``stream``."""
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count:
+        n_part = max(n_part, ws[0].numel() if ws else 0)
+        n_count = max(n_count, ws[1].numel() if ws else 0)
+        ws = _WORKSPACE[key] = (
+            torch.empty(n_part, dtype=torch.float32, device=device),
+            torch.zeros(n_count, dtype=torch.int32, device=device))
+    return ws
+
+
+@functools.cache
+def _scale_log2(d: int) -> float:
+    """f32(1/sqrt(d)) * log2(e) in f32: the kernels take exponentials base
+    2 of scores scaled by log2(e)."""
+    return float(np.float32(float(np.float32(1.0 / np.sqrt(d)))
+                            * math.log2(math.e)))
+
+
+@functools.cache
+def _launcher(lib: str, name: str):
+    """The C launcher ``name`` of library ``lib``, loaded and typed once."""
     fn = getattr(_build.load(lib), name)
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+    # (q, k, v, out, [part, counter,] bh, sq, sk, d, causal | splits, kps,
+    # scale_log2, stream)
+    fn.argtypes = ([_P] * 6 + [_I] * 6 + [_F, _P] if lib == SPLIT_LIB
+                   else [_P] * 4 + [_I] * 5 + [_F, _P])
     fn.restype = _I
     return fn
 
@@ -124,10 +218,10 @@ def flash_attention_fake(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, bq: int, bk: int) -> torch.Tensor:
     """Attention of q (BH, Sq, D) over k, v (BH, Sk, D) on the card, in one
-    kernel launch.
+    kernel launch (:func:`kernel_of`).
 
     ``bq`` and ``bk`` are kept for the reference kernel's signature alone:
-    the kernels work in tiles of 48 to 128 queries and 32 to 128 keys and
+    the kernels work in tiles of 16 to 128 queries and 8 to 128 keys and
     mask a ragged edge, so BH, Sq and Sk may be any sizes of at least 1.  A
     D that the kernels are not built for is padded with zero columns
     (:func:`pad_head_dim`) and the output sliced back.  q, k and v share
@@ -152,14 +246,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must start on a 16-byte boundary")
     qp, kp, vp = pad_head_dim(q, k, v)
     out = torch.empty_like(qp)
-    # the kernels take exponentials base 2 of scores scaled by log2(e); the
-    # scale is the unpadded D's
-    scale = float(np.float32(float(np.float32(1.0 / np.sqrt(d)))
-                             * math.log2(math.e)))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher(q.dtype, d)(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                                out.data_ptr(), bh, sq, sk, qp.shape[-1],
-                                int(causal), scale, stream)
-    _build.check(err, kernel_of(q.dtype, d)[0])
+    # the scale is the unpadded D's
+    scale = _scale_log2(d)
+    stream = _build.current_stream(q.device)
+    lib, name = kernel_of(q.dtype, d, sq, causal)
+    dp = qp.shape[-1]
+    if lib == SPLIT_LIB:
+        splits, kps = split_plan(
+            bh, sk, *_split_limits(q.dtype, dp, q.device.index))
+        part = cnt = None
+        if splits > 1:
+            part, cnt = _split_workspace(
+                q.device, stream, bh * splits * sq * (dp + 2), bh)
+        err = _launcher(lib, name)(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            cnt.data_ptr() if cnt is not None else None, bh, sq, sk, dp,
+            splits, kps, scale, stream)
+    else:
+        err = _launcher(lib, name)(qp.data_ptr(), kp.data_ptr(),
+                                   vp.data_ptr(), out.data_ptr(), bh, sq, sk,
+                                   dp, int(causal), scale, stream)
+    _build.check(err, lib)
     _build.LAUNCHES["flash_attention"] += 1
     return out if out.shape[-1] == d else out[..., :d].contiguous()

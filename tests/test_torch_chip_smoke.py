@@ -11,6 +11,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _SCRIPT = r"""
@@ -52,8 +54,9 @@ def test_stop_children_leaves_no_process():
 def test_attention_cases_match_the_kernels_line():
     """Every attention case of the smoke has its entry in the ``kernels``
     line, whose source is the library that ``kernel_of`` routes the case's
-    dtype and head dim to, and every attention entry has a case (so each
-    wide instance checked on the card names its own source)."""
+    dtype, head dim, query rows and causal flags to, and every attention
+    entry has a case (so each wide and split instance checked on the card
+    names its own source)."""
     import importlib.util
 
     import torch
@@ -65,12 +68,34 @@ def test_attention_cases_match_the_kernels_line():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     seen = set()
-    for _, _, _, hd, _, _, dt, _ in cs.ATTENTION_CASES:
-        name = cs.attention_kernel(dt, hd)
+    for _, _, _, hd, tokens, _, dt, causals in cs.ATTENTION_CASES:
+        name = cs.attention_kernel(dt, hd, tokens, causals)
         seen.add(name)
         src, replaces = cs.KERNEL_SOURCES[name]
-        assert Path(src).stem == kernel_of(getattr(torch, dt), hd)[0], name
+        sq = tokens[0] if isinstance(tokens, tuple) else tokens
+        for causal in causals:
+            assert Path(src).stem == kernel_of(getattr(torch, dt), hd, sq,
+                                               causal)[0], name
         assert (ROOT / src).exists()
         assert replaces == "src/repro/kernels/flash_attention.py:62"
     assert seen == {n for n in cs.KERNEL_SOURCES
                     if n.startswith("flash_attention")}
+
+
+@pytest.mark.parametrize("d", [1, 2, 64, 8192])
+def test_hadamard_is_the_plain_fwht_of_the_identity(d):
+    """The smoke's FWHT yardstick multiplies by ``hadamard(d)``, a
+    Kronecker power: bit for bit the plain FWHT of the identity, so the
+    product computes the FWHT."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.kernels import ref
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    h = cs.hadamard(torch, d, torch.device("cpu"))
+    assert torch.equal(h, ref.fwht_ref(torch.eye(d)))

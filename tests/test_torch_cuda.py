@@ -327,11 +327,13 @@ def test_fwht_misaligned_view(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,rows", [(1, 301), (2, 301), (1 << 15, 5),
-                                    (1 << 16, 3), (1 << 20, 2), (1 << 23, 1)])
+                                    (1 << 16, 3), (1 << 19, 2), (1 << 20, 2),
+                                    (1 << 23, 1), (1 << 26, 1), (1 << 27, 1)])
 def test_fwht_short_and_long_rows_match_plain(cuda, d, rows, dtype):
-    """Rows of 1 and 2 (one launch, no stage or one) and rows past 16,384
-    (the tile kernel over the low 14 index bits, then one launch per group
-    of up to 8 of the rest: 2, 2, 2 and 3 launches), bitwise against the
+    """Rows of 1 and 2 (one launch, no stage or one) and rows past 16,384:
+    up to 2^18 one launch of the cluster kernel, past it the tile kernel
+    over the low 14 index bits, then one launch per group of up to 8 of the
+    rest (2^19 to 2^22: 2 launches, 2^23 to 2^30: 3), bitwise against the
     plain version on the card."""
     from repro_torch.kernels.fwht import fwht_passes
 
@@ -342,6 +344,28 @@ def test_fwht_short_and_long_rows_match_plain(cuda, d, rows, dtype):
     got = TK.fwht(x)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["fwht"] == before + 1 + len(fwht_passes(d))
+    assert got.dtype == dtype and tuple(got.shape) == (rows, d)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1 << 15, 1 << 16, 1 << 17, 1 << 18])
+def test_fwht_cluster_rows_match_plain(cuda, d, dtype, aligned):
+    """Rows of 2^15 to 2^18 take one launch of the cluster kernel (2 to 16
+    blocks a row, the high index bits through distributed shared memory),
+    bitwise against the plain version, on a tensor on a 16-byte boundary
+    and on a view one element past it (one-element loads and stores)."""
+    rows = 3
+    g = torch.Generator(device=cuda).manual_seed(d)
+    flat = torch.randn(rows * d + 1, generator=g, device=cuda).to(dtype)
+    x = (flat[:-1] if aligned else flat[1:]).view(rows, d)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    want = TRef.fwht_ref(x)
+    before = _build.LAUNCHES["fwht"]
+    got = TK.fwht(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fwht"] == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (rows, d)
     assert torch.equal(_bits(got), _bits(want))
 
@@ -520,6 +544,79 @@ def test_flash_attention_wide_head_dims_match_plain(cuda, dtype, d, sq, sk,
     rtol, atol = _FLASH_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sk", [1, 511, 4096, 32768])
+@pytest.mark.parametrize("sq", [1, 8, 16])
+def test_flash_attention_split_matches_plain(cuda, dtype, sq, sk):
+    """Few queries over many keys, not causal: the split kernel (over BH 3
+    a split for each 256 keys up to one or two blocks an SM and 64: one at
+    Sk 1, two at 511, 16 at 4,096, 44 to 64 at 32,768), one launch, within
+    the limits
+    of the other kernels' tests; a second call reuses the stream's
+    counters, which the first must have left at 0."""
+    from repro_torch.kernels.flash_attention import kernel_of
+
+    assert kernel_of(dtype, 128, sq, False)[0] == "flash_attention_split"
+    q, k, v = (a.to(dtype) for a in _qkv(3, sq, sk, 128, seed=sq + sk))
+    want = TRef.flash_attention_ref(q, k, v, causal=False)
+    before = _build.LAUNCHES["flash_attention"]
+    got = TK.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=False)
+    again = TK.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                               causal=False)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 2
+    assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+    rtol, atol = _FLASH_TOL[dtype]
+    for out in (got, again):
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().numpy(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 100, 128, 192, 256])
+def test_flash_attention_split_head_dims_and_bits(cuda, dtype, d):
+    """The split kernel at every head dim it is built for (f32 from 64;
+    48 and 100 padded), BH 64, 8 queries over 4,096 keys (one to four
+    splits), against the plain version on the card; two calls give the
+    same bits (the splits are merged in a fixed order)."""
+    q, k, v = (a.to(dtype).to(cuda) for a in _qkv(64, 8, 4096, d, seed=d))
+    got = TK.flash_attention(q, k, v, causal=False)
+    again = TK.flash_attention(q, k, v, causal=False)
+    want = TRef.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16 if dtype != torch.float32
+                                else torch.int32),
+                       again.view(torch.int16 if dtype != torch.float32
+                                  else torch.int32))
+    rtol, atol = _FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_split_limits(cuda, dtype):
+    """The split kernel's library states the limits that the CPU tests of
+    ``split_plan`` take (64 splits; keys of one tile for each of four warps,
+    32 in f32 and 64 in bf16 and f16), and at least one block of every
+    built head dim fits on each SM."""
+    from repro_torch.kernels import flash_attention as FA
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = (64, 32) if dtype == torch.float32 else (64, 64)
+    for d in FA.HEAD_DIMS:
+        if dtype == torch.float32 and d < 64:
+            continue
+        blocks, max_splits, align = FA._split_limits(dtype, d,
+                                                     cuda.index or 0)
+        assert blocks >= sms and (max_splits, align) == want, d
 
 
 def test_flash_attention_raises_outside_the_rules(cuda):
