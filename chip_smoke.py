@@ -21,7 +21,8 @@ nothing of the JAX package.  The script
    from 4 to 16384, in f32 and bf16, and on two views off a 16-byte
    boundary, and is timed in bf16 too; the ``sass`` line counts its LDS,
    STS and SHFL at d = 4096 and its registers, and fails if any instance
-   of it spilled, and fails unless the encode's and the single decode's
+   of it (the cluster, fused and further-pass kernels among them)
+   spilled, and fails unless the encode's and the single decode's
    main instances move their streams by 128-bit loads and stores and no
    instance of the four lattice libraries spilled, and unless every
    instance of the attention kernels (the wgmma kernel in bf16 and f16 at
@@ -36,9 +37,10 @@ nothing of the JAX package.  The script
    version at full width and timed: the encode, the single decode and the
    batched decode (16 senders) at q = 2 (1-bit colors), 3 and 12 (not
    powers of two), the encode and the single decode at n = 31, and the FWHT over
-   (8,479, 32,768), (4,239, 65,536), (1,059, 262,144), (264, 1,048,576)
-   and (138,922,752, 2), f32 and bf16 (rows of 2^15 to 2^18 in one launch
-   of the cluster kernel, rows of 2^20 in two);
+   (8,479, 32,768), (4,239, 65,536), (1,059, 262,144), (264, 1,048,576),
+   (66, 4,194,304), (33, 8,388,608) and (138,922,752, 2), f32 and bf16
+   (rows of 2^15 to 2^18 in one launch of the cluster kernel, rows of
+   2^20 and 2^22 in one of the fused kernel, rows of 2^23 in two);
 3. runs round A: an unrotated, unanchored round of 16 clients over a
    277,845,504-dimensional vector (the gradient of whisper-small, the
    smallest model the repo configures), q = 16, bucket = 4096, y0 = 0.25;
@@ -280,9 +282,8 @@ kernel of a path that was not launched there fails the run, and the
 entries of the new shapes (``SHAPE_INSTANCES``) take their kernel's
 launches on the paths that run them at that width: the FWHT's rows of
 32,768 (q = 12), 65,536 and 1,048,576 on the rotated paths of those
-buckets.  Any failed
-check raises before the
-last line is printed.  Without a CUDA device, or without the port beside
+buckets (``fwht_d1048576`` is the fused kernel's entry: its rows take one
+launch of it).  Any failed check raises before the last line is printed.  Without a CUDA device, or without the port beside
 it, the script exits with a nonzero code and prints no result.
 """
 from __future__ import annotations
@@ -414,6 +415,7 @@ SHAPE_INSTANCES = {
     "fwht_d2": ("fwht", None, ("n31_rot",)),
     "fwht_d32768": ("fwht", None, ("q12_rot",)),
     "fwht_d65536": ("fwht", None, ("d65536_rot",)),
+    # the fused kernel (rows of 2^19 to 2^22)
     "fwht_d1048576": ("fwht", None, ("d1048576_rot",)),
 }
 
@@ -746,20 +748,22 @@ def fwht_sass(_build) -> dict:
     check(all(u["local"] == 0 for u in usage.values()),
           "an fwht kernel uses local memory (ptxas spilled)")
     # the cluster kernel of rows of 2^15 to 2^18 (one instance a row
-    # length, type, alignment and, at 2^18, first launch of a longer row)
-    # and the further launches of rows past 2^18 (one a bit count and
-    # output)
+    # length, type and alignment), the fused kernel of rows of 2^19 to 2^22
+    # (the same, and at 2^22 the first launch of a longer row) and the
+    # further launches of rows past 2^22 (one a bit count and output)
     found = {}
-    for kind in ("fwht_cluster_kernel", "fwht_high_kernel"):
+    for kind in ("fwht_cluster_kernel", "fwht_fused_kernel",
+                 "fwht_high_kernel"):
         found[kind] = [u["registers"] for name, u in usage.items()
                        if kind in name]
         check(found[kind], f"no {kind} in cuobjdump -res-usage")
-    cluster, high = found.values()
+    cluster, fused, high = found.values()
     # the launcher's dynamic shared memory at d = 4096: one f32 tile
     return dict(function=FWHT_MAIN, counts=counts, **main[0],
                 dynamic_shared_bytes=4 * 4096, instances=len(usage),
                 cluster_instances=len(cluster),
                 cluster_max_registers=max(cluster),
+                fused_instances=len(fused), fused_max_registers=max(fused),
                 high_instances=len(high), high_max_registers=max(high))
 
 
@@ -1117,7 +1121,8 @@ def fwht_check(torch, x, nb: int, bucket: int, g) -> dict:
 SHAPE_QS = (2, 3, 12)
 SHAPE_N = 31
 FWHT_SHAPES = ((8_479, 1 << 15), (4_239, 1 << 16), (1_059, 1 << 18),
-               (264, 1 << 20), (FULL_D // 2, 2))
+               (264, 1 << 20), (66, 1 << 22), (33, 1 << 23),
+               (FULL_D // 2, 2))
 
 
 def encode_check(torch, x, u, sides, q: int, bucket: int) -> dict:
@@ -1239,9 +1244,9 @@ def fwht_shape_check(torch, rows: int, d: int, g) -> dict:
     """The FWHT over (rows, d) f32 and bf16: bitwise against its plain
     version on the leading rows that hold ``SLICE`` coordinates, launches
     counted, timed at the full shape.  The bound is one read and one write
-    of the data; rows of up to 2^18 take one launch (past 16,384 the
-    cluster kernel), longer rows 1 + ``fwht_passes``, each a read and a
-    write.  The yardstick (``library_ms``) is one f32 product with the
+    of the data; rows of up to 2^22 take one launch (past 16,384 the
+    cluster kernel, past 2^18 the fused kernel), longer rows 1 +
+    ``fwht_passes``, each a read and a write.  The yardstick (``library_ms``) is one f32 product with the
     scaled Hadamard matrix (TF32 off) up to ``LIBRARY_FWHT_D``, the matrix
     built in blocks of rows (``hadamard``); past it the matrix alone (d^2
     f32, 275 GB at 2^18) would not fit on the card: none.  The product's

@@ -74,24 +74,57 @@
 // 128 KB of shared memory) let one block's loads run while the other
 // exchanges; the distributed reads add (C - 1) / C of a row a block.
 //
-// Rows longer than 2^18, d = 2^L with L > 18, take several launches
-// (fwht_pass_launch).  The first is the tile kernel over index bits 0-13
-// of each row (rows of 16384), unscaled, writing f32 (into the output for
-// f32, into a scratch tensor the wrapper allocates for bf16).  Each further
-// launch (fwht_high_kernel) runs the stages of K <= 8 of the high index
-// bits, b0 .. b0 + K - 1, in place on that f32 tensor: a block takes a
-// tile of 2^K rows of those bits (2^b0 elements apart) by 4096 / 2^K
-// consecutive columns, the same column across a warp so that every load
-// and store is a coalesced run; a thread holds 16 values, 4 bits of
-// stages in registers at a time, the next 4 through shared memory.  Only
-// the last launch scales and rounds to the output type.  Intermediates
-// stay f32 between launches, so the sums are the plain version's.  Each
-// launch reads and writes the row once more: 1 + ceil((L - 14) / 8)
-// passes over the data in all.
+// Rows of 2^19 to 2^22, d = 2^L, take one launch of fwht_fused_kernel,
+// which runs in one grid what a tile launch over the low index bits and a
+// further launch over the high ones would run.  A row of 2^20 f32 (4 MiB)
+// does not fit in a cluster's shared memory, but a few rows fit in the 50
+// MB L2, and the intermediate stays there.  A low item is the tile kernel's
+// body over 2^S consecutive coordinates of a row (index bits 0 .. S - 1,
+// S = L - 7 up to 2^20, L - 8 past it), written as unscaled f32 to a
+// workspace; a high item is 2^(S - 12) of fwht_high_kernel's tiles of 4096
+// (256 threads each) over bits S .. L - 1, read from the workspace, scaled
+// once and written to out.  A row has 2^(L - S) items of each kind.
+// Blocks have the tile kernel's threads at 2^S, as many an SM as fit, and
+// loop over tickets they draw with atomicAdd, the next one while they work
+// on this one.  In ticket order
+// the low items of row r + lag come before the high items of row r, so
+// that by the time a high item starts its row's low items are done; it
+// waits (thread 0 spins on an acquire load) until all of them have
+// published (a release add by thread 0 behind a block barrier, made once
+// the next item's loads are issued), and reads the workspace with
+// ld.global.cg, past L1, since other SMs wrote it in this launch.  A block
+// publishes before it ever waits and waits only on lower tickets, so the
+// lowest ticket not yet published always runs: no co-residency is needed
+// and nothing can deadlock.  The workspace of f32 output is the output
+// itself: a high item rewrites the low items' lines in place while they
+// are still in L2.  bf16 output takes a ring of `slots` (>= lag + 1) f32
+// rows: a low item of row r >= slots waits, before its stores, until the
+// high items of row r - slots (whose tickets are lower) are done with the
+// slot.  x is read and out written evict-first in L2, the workspace read
+// evict-first, so that the lines the high items still need stay.  The
+// block that finishes last sets the counters back to 0.  Every element
+// gets the same adds in the same order as in the tile and further
+// launches, so the bits are the same.
+//
+// Rows longer than 2^22, d = 2^L, take two launches (three past 2^30): the
+// fused kernel over segments of 2^G, G = min(22, max(20, L - 8)) (index
+// bits 0 .. G - 1 act on each segment on its own; 2^22 is the fused
+// kernel's slowest length, so the shortest segments that leave at most 8
+// bits), unscaled, writing f32 (into the output for f32, into a scratch
+// tensor the wrapper allocates for bf16); then each further launch
+// (fwht_high_kernel) runs the stages of K <= 8 of the high index bits, b0
+// .. b0 + K - 1, in place on that f32 tensor: a block takes a tile of 2^K
+// rows of those bits (2^b0 elements apart) by 4096 / 2^K consecutive
+// columns, the same column across a warp so that every load and store is
+// a coalesced run; a thread holds 16 values, 4 bits of stages in registers
+// at a time, the next 4 through shared memory.  Only the last launch
+// scales and rounds to the output type.  Intermediates stay f32 between
+// launches, so the sums are the plain version's.
 //
 // A pointer that is not on a 16-byte boundary (a view that starts inside a
 // row of a small bf16 tensor) takes the same kernel with one-element loads
 // and stores.  No allocation; the launch goes on the caller's stream.
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -143,6 +176,11 @@ struct Io<float> {
   static __device__ __forceinline__ void store(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
+  // evict-first in L2 (ld.global.cs): read once, by the fused kernel
+  static __device__ __forceinline__ void load_once(const float* p, float* v) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  }
   static __device__ __forceinline__ float load1(const float* p) { return *p; }
   static __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 };
@@ -166,6 +204,17 @@ struct Io<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     *reinterpret_cast<uint4*>(p) = t;
+  }
+  static __device__ __forceinline__ void load_once(const __nv_bfloat16* p,
+                                                   float* v) {
+    const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   }
   static __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
@@ -259,23 +308,24 @@ __device__ __forceinline__ void exchange(float (&v)[kRegs], int lane) {
   }
 }
 
-// T in, TO out; SCALE false (the first launch of a longer row) leaves the
-// scale to the last launch.
-template <typename T, int L, bool VEC_IO, typename TO = T, bool SCALE = true>
-__global__ void __launch_bounds__(Geo<L>::THREADS, Geo<L>::MIN_BLOCKS)
-fwht_kernel(const T* __restrict__ x, TO* __restrict__ out, int64_t n, float scale) {
-  constexpr int TB = Geo<L>::TB, P = Geo<L>::PASSES, VI = Io<T>::VEC;
-  constexpr int VEC = Io<TO>::VEC;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x;
-  const int64_t g0 = (int64_t)blockIdx.x << TB;
+// The tile kernel's work on one tile of 2^TB coordinates, TO out; SCALE
+// false (a low item of the fused kernel) leaves the scale to the high
+// items.  On every thread: load(v) fills v with the thread's 16 consecutive
+// coordinates (index tid << 4 ...), loaded() runs next, pre() after the
+// stages, and put(g, v) stores VEC values from tile index g on: runs of 16
+// bytes of TO after an exchange, or (VEC = 1, f32) one value a store, a
+// warp's 32 at consecutive indices.
+template <int L, typename TO, bool SCALE, int VEC = Io<TO>::VEC,
+          typename Load, typename Loaded, typename Pre, typename Put>
+__device__ __forceinline__ void tile_body(float scale, int tid, float* sm,
+                                          Load load, Loaded loaded, Pre pre,
+                                          Put put) {
+  constexpr int P = Geo<L>::PASSES;
   float v[kRegs];
 
   // pass 0: the thread's 16 consecutive coordinates
-#pragma unroll
-  for (int k = 0; k < kRegs / VI; ++k)
-    load_run<T, VEC_IO>(x, g0 + (tid << 4) + k * VI, n, v + k * VI);
+  load(v);
+  loaded();
   stages<L, 0>(v);
   if constexpr (P > 1) { transpose<L, 0>(v, sm, tid); stages<L, 1>(v); }
   if constexpr (P > 2) { transpose<L, 1>(v, sm, tid); stages<L, 2>(v); }
@@ -284,11 +334,18 @@ fwht_kernel(const T* __restrict__ x, TO* __restrict__ out, int64_t n, float scal
 #pragma unroll
     for (int r = 0; r < kRegs; ++r) v[r] = __fmul_rn(v[r], scale);
   }
+  pre();
 
   if constexpr (P == 1) {
 #pragma unroll
     for (int k = 0; k < kRegs / VEC; ++k)
-      store_run<TO, VEC_IO>(out, g0 + (tid << 4) + k * VEC, n, v + k * VEC);
+      put((tid << 4) + k * VEC, v + k * VEC);
+  } else if constexpr (VEC == 1) {
+    // one value a store, a warp's 32 consecutive
+    constexpr int lo = reg_lo<L>(P - 1);
+    const int base = thread_bits(lo, tid);
+#pragma unroll
+    for (int r = 0; r < kRegs; ++r) put(base | (r << lo), v + r);
   } else {
     // Lane bits 0..E-1 hold index bits 0..E-1 in passes >= 1; after the
     // swap the registers hold them, and lane bits 0..E-1 index bits
@@ -300,8 +357,32 @@ fwht_kernel(const T* __restrict__ x, TO* __restrict__ out, int64_t n, float scal
                      | ((tid >> lo) << (lo + 4));
 #pragma unroll
     for (int k = 0; k < kRegs / VEC; ++k)
-      store_run<TO, VEC_IO>(out, g0 + (base | (k << (lo + E))), n, v + k * VEC);
+      put(base | (k << (lo + E)), v + k * VEC);
   }
+}
+
+struct Nothing {
+  __device__ void operator()() const {}
+};
+
+// Rows of 2^L <= 2^14 (whole, several a tile below 2^12): a block a tile.
+template <typename T, int L, bool VEC_IO>
+__global__ void __launch_bounds__(Geo<L>::THREADS, Geo<L>::MIN_BLOCKS)
+fwht_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, float scale) {
+  constexpr int VI = Io<T>::VEC;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x;
+  const int64_t g0 = (int64_t)blockIdx.x << Geo<L>::TB;
+  auto load = [&](float* v) {
+#pragma unroll
+    for (int k = 0; k < kRegs / VI; ++k)
+      load_run<T, VEC_IO>(x, g0 + (tid << 4) + k * VI, n, v + k * VI);
+  };
+  auto put = [&](int g, const float* v) {
+    store_run<T, VEC_IO>(out, g0 + g, n, v);
+  };
+  tile_body<L, T, true>(scale, tid, reinterpret_cast<float*>(smem4), load,
+                        Nothing{}, Nothing{}, put);
 }
 
 // Rows of 2^15 .. 2^18 in one launch: a cluster of C = 2^(L - 14) blocks a
@@ -467,8 +548,9 @@ fwht_cluster_kernel(const T* __restrict__ x, T* __restrict__ out, float scale) {
     cluster.sync();
 }
 
-// Tile of a further launch of a row of 2^L > 2^14: 4096 elements, 2^K rows
-// of index bits b0 .. b0 + K - 1 by C = 4096 / 2^K consecutive columns.
+// Tile of a further launch of a row of 2^L > 2^22, or of a high item of
+// the fused kernel: 4096 elements, 2^K rows of index bits b0 .. b0 + K - 1
+// by C = 4096 / 2^K consecutive columns.
 constexpr int kHighTile = 4096, kHighThreads = 256;
 
 // The stages over bits 0 .. KB - 1 of the register index, lowest first:
@@ -487,27 +569,29 @@ __device__ __forceinline__ void reg_stages(float (&v)[kRegs]) {
     }
 }
 
-// One further launch: stages over index bits b0 .. b0 + K - 1 (b0 >= 14)
-// of f32 rows, in place; the last one (LAST) scales and writes TO to out.
-// n is a multiple of the tile.  A thread's 16 values are 16 >> K0 items
-// (columns, in steps of 256 threads) of 2^K0 rows each: first the rows of
-// bits 0 .. K0 - 1 of the tile's row index (K0 = min(K, 4)), then, through
-// shared memory, of bits 4 .. K - 1.  Not restrict: in and out may be one
-// tensor, each tile read whole before it is written.
-template <int K, typename TO, bool LAST>
-__global__ void __launch_bounds__(kHighThreads)
-fwht_high_kernel(const float* in, TO* out, int64_t n, int b0, float scale) {
+// The stages over index bits b0 .. b0 + K - 1 (b0 >= 12) of one tile of
+// f32 values, its first element at `base` of in and of out: 2^K rows 2^b0
+// elements apart by C = 4096 / 2^K consecutive columns, 256 threads (tid
+// 0-255) and 4096 floats of shared memory.  LAST scales and writes TO;
+// else f32, unscaled.  A thread's 16 values are 16 >> K0 items (columns,
+// in steps of 256 threads) of 2^K0 rows each: first the rows of bits 0 ..
+// K0 - 1 of the tile's row index (K0 = min(K, 4)), then, through shared
+// memory, of bits 4 .. K - 1.  Not restrict: in and out may be one
+// tensor, each tile read whole before it is written.  The loads go past L1
+// (ld.global.cg): in the fused kernel another SM wrote `in` in the same
+// launch.  STREAM (the fused kernel) reads and writes evict-first in L2:
+// this tile's lines are not needed again there, and the workspace lines
+// still to be read are.
+template <int K, typename TO, bool LAST, bool STREAM = false>
+__device__ __forceinline__ void high_body(const float* in, TO* out,
+                                          int64_t base, int b0, float scale,
+                                          int tid, float* sm) {
   constexpr int C = kHighTile >> K, LC = 12 - K;   // columns, their bits
   constexpr int K0 = K < 4 ? K : 4, K1 = K - K0;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x;
-  // tile -> (column block, everything above the tile's bits)
-  const int cbits = b0 - LC;
-  const int64_t t = blockIdx.x;
-  const int64_t base = ((t >> cbits) << (b0 + K))
-                       + ((t & ((int64_t(1) << cbits) - 1)) << LC);
   float v[kRegs];
+  uint64_t first = 0;   // STREAM: an L2 policy, evict first
+  if constexpr (STREAM)
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(first));
 
   // round 0: item i = tid + 256 j is column i % C of rows i / C << K0 | r
   constexpr int N0 = 1 << K0;
@@ -516,8 +600,14 @@ fwht_high_kernel(const float* in, TO* out, int64_t n, int b0, float scale) {
     const int i = tid + kHighThreads * j;
     const int c = i & (C - 1), rr = i >> LC;
 #pragma unroll
-    for (int r = 0; r < N0; ++r)
-      v[j * N0 + r] = in[base + ((int64_t)(r | (rr << K0)) << b0) + c];
+    for (int r = 0; r < N0; ++r) {
+      const float* p = in + base + ((int64_t)(r | (rr << K0)) << b0) + c;
+      if constexpr (STREAM)
+        asm volatile("ld.global.cg.L2::cache_hint.f32 %0, [%1], %2;"
+                     : "=f"(v[j * N0 + r]) : "l"(p), "l"(first) : "memory");
+      else
+        v[j * N0 + r] = __ldcg(p);
+    }
   }
   reg_stages<K0>(v);
 
@@ -556,13 +646,188 @@ fwht_high_kernel(const float* in, TO* out, int64_t n, int b0, float scale) {
       const int64_t at = base + ((int64_t)row << b0) + c;
       if constexpr (LAST) {
         const float z = __fmul_rn(v[j * NL + r], scale);
-        if constexpr (std::is_same_v<TO, float>) out[at] = z;
-        else out[at] = __float2bfloat16_rn(z);
+        TO w;
+        if constexpr (std::is_same_v<TO, float>) w = z;
+        else w = __float2bfloat16_rn(z);
+        if constexpr (STREAM) __stcs(out + at, w);
+        else out[at] = w;
+      } else if constexpr (STREAM) {
+        __stcs(out + at, v[j * NL + r]);
       } else {
         out[at] = v[j * NL + r];
       }
     }
   }
+}
+
+// One further launch: a block a tile of high_body, of f32 rows, in place
+// unless LAST.  n is a multiple of the tile.
+template <int K, typename TO, bool LAST>
+__global__ void __launch_bounds__(kHighThreads)
+fwht_high_kernel(const float* in, TO* out, int64_t n, int b0, float scale) {
+  constexpr int LC = 12 - K;
+  extern __shared__ float4 smem4[];
+  // tile -> (column block, everything above the tile's bits)
+  const int cbits = b0 - LC;
+  const int64_t t = blockIdx.x;
+  const int64_t base = ((t >> cbits) << (b0 + K))
+                       + ((t & ((int64_t(1) << cbits) - 1)) << LC);
+  high_body<K, TO, LAST>(in, out, base, b0, scale, threadIdx.x,
+                         reinterpret_cast<float*>(smem4));
+}
+
+// Rows of 2^19 .. 2^22 in one launch (see the top of the file).  A high
+// item runs K = 7 (L <= 20) or 8 bits, in 2^(S - 12) high_body tiles, one a
+// 256 threads; a low item is a tile of the tile kernel, 2^S coordinates, S
+// = L - K (12 to 14).  A block has the tile kernel's threads at 2^S (256,
+// 512 or 1024), as many an SM as run at once.  (At 2^20, K = 7 timed
+// faster on an H100 than K = 8, whose smaller S leaves the low items
+// cheaper but the high items' shared-memory round slower.)
+template <int L>
+struct Fused {
+  static constexpr int K = L <= 20 ? 7 : 8;
+  static constexpr int S = L - K;
+  static constexpr int THREADS = Geo<S>::THREADS;
+  static constexpr int TILES = THREADS / kHighThreads;
+  // four 256-thread blocks an SM (at most 64 registers a thread)
+  static constexpr int MIN_BLOCKS = 1024 / THREADS;
+  static_assert(TILES * kHighTile == 1 << S, "items of one size");
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Thread 0 waits until *p >= want, then the block goes on.
+__device__ __forceinline__ void wait_for(const unsigned* p, unsigned want) {
+  if (threadIdx.x == 0)
+    while (ld_acquire(p) < want) __nanosleep(32);
+  __syncthreads();
+}
+
+// Every thread's stores before this, then one release add of 1 to *p.
+__device__ __forceinline__ void publish(unsigned* p) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" :: "l"(p)
+                 : "memory");
+}
+
+// sync: [0] tickets drawn, [1] blocks finished, [2, 2 + rows) low items of
+// row r published, [2 + rows, 2 + 2 rows) high items of row r done (a ring
+// only); all 0 at the start and left 0.  TO = float: the workspace is out
+// (ring unused); else a ring of `slots` f32 rows.  SCALE false: a segment
+// of a longer row, written unscaled.  A block loops over tickets, the next
+// one drawn while it works on this one.  It publishes an item once the
+// next item's loads are issued, and always before it waits, so that the
+// lowest ticket not yet published never waits.
+template <typename T, int L, bool VEC_IO, typename TO, bool SCALE>
+__global__ void __launch_bounds__(Fused<L>::THREADS, Fused<L>::MIN_BLOCKS)
+fwht_fused_kernel(const T* __restrict__ x, TO* out, float* ring,
+                  unsigned* sync, int rows, int lag, int slots, float scale) {
+  using F = Fused<L>;
+  constexpr int S = F::S, K = F::K, NL = 1 << K;  // items of a row, each kind
+  constexpr int VI = Io<T>::VEC;
+  constexpr bool kRing = !std::is_same_v<TO, float>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  __shared__ unsigned s_word, s_next[2];
+  const int tid = threadIdx.x;
+  const unsigned total = 2u * rows * NL;
+  const int head = min(rows, lag + 1), pairs = max(0, rows - lag - 1);
+  unsigned* lows = sync + 2;
+  unsigned* highs = lows + rows;
+  // the last item's counter, not yet added to: lows[r] as r, highs[r] as
+  // rows + r; -1 none
+  int pending = -1;
+  auto flush = [&]() {
+    if (pending >= 0) publish(lows + pending);
+    pending = -1;
+  };
+
+  if (tid == 0) s_word = atomicAdd(sync, 1u);
+  __syncthreads();
+  unsigned t = s_word;
+  int nb = 0;
+  while (t < total) {
+    unsigned next = 0;
+    if (tid == 0) next = atomicAdd(sync, 1u);
+    // ticket -> group (a row's items of one kind) -> kind and row: the low
+    // rows 0 .. lag first, then high row j before low row lag + 1 + j,
+    // then the high rows left
+    const int grp = (int)(t >> K), item = (int)(t & (NL - 1));
+    bool high;
+    int r;
+    if (grp < head) {
+      high = false;
+      r = grp;
+    } else if (grp < head + 2 * pairs) {
+      const int j = grp - head;
+      high = (j & 1) == 0;
+      r = high ? j >> 1 : lag + 1 + (j >> 1);
+    } else {
+      high = true;
+      r = grp - head - pairs;
+    }
+    const int64_t row = (int64_t)r << L, at = (int64_t)item << S;
+    auto workspace = [&]() -> float* {
+      if constexpr (kRing) return ring + ((int64_t)(r % slots) << L);
+      else return out + row;
+    };
+    if (!high) {
+      const T* src = x + row + at;
+      auto load = [&](float* v) {
+#pragma unroll
+        for (int k = 0; k < kRegs / VI; ++k) {
+          const int g = (tid << 4) + k * VI;
+          if constexpr (VEC_IO) {
+            Io<T>::load_once(src + g, v + k * VI);
+          } else {
+#pragma unroll
+            for (int c = 0; c < VI; ++c)
+              v[k * VI + c] = Io<T>::load1(src + g + c);
+          }
+        }
+      };
+      auto pre = [&]() {
+        // the slot's last row: its high items have read it
+        if (kRing && r >= slots) wait_for(highs + r - slots, NL);
+      };
+      // f32 to the workspace, one value a store: no exchange
+      float* o = workspace() + at;
+      auto put = [&](int g, const float* v) { o[g] = v[0]; };
+      tile_body<S, float, false, 1>(scale, tid, sm, load, flush, pre, put);
+      pending = r;
+    } else {
+      flush();
+      wait_for(lows + r, NL);
+      const int sub = tid / kHighThreads;
+      high_body<K, TO, SCALE, true>(
+          workspace(), out + row,
+          (int64_t)(item * F::TILES + sub) << (12 - K), S, scale,
+          tid % kHighThreads, sm + sub * kHighTile);
+      if (kRing) pending = rows + r;
+    }
+    if (tid == 0) s_next[nb] = next;   // last read before the last barrier
+    __syncthreads();   // shared memory is free, s_next[nb] written
+    t = s_next[nb];
+    nb ^= 1;
+  }
+  flush();
+
+  // the last block to finish sets the counters back to 0
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    s_word = atomicAdd(sync + 1, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (s_word)
+    for (int j = tid; j < 2 + 2 * rows; j += F::THREADS) sync[j] = 0;
 }
 
 template <int K, typename TO, bool LAST>
@@ -591,24 +856,93 @@ int launch_high_k(const float* in, void* out, int64_t n, int b0, int k,
   }
 }
 
-template <typename T, int L, typename TO = T, bool SCALE = true>
+template <typename T, int L>
 int launch_l(const void* x, void* out, int64_t rows, float scale, bool vec,
              cudaStream_t stream) {
   using G = Geo<L>;
   const int64_t n = rows << L;
   const int64_t blocks = (n + (int64_t(1) << G::TB) - 1) >> G::TB;
   const size_t smem = G::PASSES > 1 ? sizeof(float) << G::TB : 0;
-  const T* xp = static_cast<const T*>(x);
-  TO* op = static_cast<TO*>(out);
-  auto kernel = vec ? fwht_kernel<T, L, true, TO, SCALE>
-                    : fwht_kernel<T, L, false, TO, SCALE>;
+  auto kernel = vec ? fwht_kernel<T, L, true> : fwht_kernel<T, L, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(unsigned)blocks, G::THREADS, smem, stream>>>(xp, op, n, scale);
+  kernel<<<(unsigned)blocks, G::THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n, scale);
   return (int)cudaGetLastError();
+}
+
+// Rows of 2^L, 19 <= L <= 22, in one launch of the fused kernel: T in, TO
+// out, unscaled f32 where SCALE is false (segments of a longer row).
+template <typename T, int L, typename TO, bool SCALE>
+int launch_fused(const void* x, void* out, float* ring, unsigned* sync,
+                 int64_t rows, int lag, int slots, float scale, bool vec,
+                 cudaStream_t stream) {
+  constexpr bool kRing = !std::is_same_v<TO, float>;
+  using F = Fused<L>;
+  const int64_t blocks = 2 * (rows << F::K);
+  // a ring slot is reused only after lower tickets (slots >= lag + 1),
+  // unless no slot is reused at all
+  if (blocks > INT_MAX || lag < 0 || !sync
+      || (kRing && (!ring || slots < 1 || (slots < lag + 1 && slots < rows))))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = vec ? fwht_fused_kernel<T, L, true, TO, SCALE>
+                    : fwht_fused_kernel<T, L, false, TO, SCALE>;
+  const size_t smem = sizeof(float) << F::S;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // as many blocks as run at once, each looping over tickets
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      F::THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t grid = std::min<int64_t>(blocks,
+                                         (int64_t)sms * std::max(per_sm, 1));
+  kernel<<<(unsigned)grid, F::THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<TO*>(out), ring, sync, (int)rows,
+      lag, slots, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fused_l(const void* x, void* out, float* ring, unsigned* sync,
+                   int64_t rows, int log2d, int lag, int slots, float scale,
+                   bool vec, cudaStream_t st) {
+  switch (log2d) {
+    case 19: return launch_fused<T, 19, T, true>(x, out, ring, sync, rows,
+                                                 lag, slots, scale, vec, st);
+    case 20: return launch_fused<T, 20, T, true>(x, out, ring, sync, rows,
+                                                 lag, slots, scale, vec, st);
+    case 21: return launch_fused<T, 21, T, true>(x, out, ring, sync, rows,
+                                                 lag, slots, scale, vec, st);
+    case 22: return launch_fused<T, 22, T, true>(x, out, ring, sync, rows,
+                                                 lag, slots, scale, vec, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Segments of 2^L (20 <= L <= 22) of longer rows: f32 out, unscaled.
+template <typename T>
+int launch_segments(const void* x, void* out, unsigned* sync, int64_t rows,
+                    int log2d, int lag, bool vec, cudaStream_t st) {
+  switch (log2d) {
+    case 20: return launch_fused<T, 20, float, false>(x, out, nullptr, sync,
+                                                      rows, lag, 0, 1.0f, vec,
+                                                      st);
+    case 21: return launch_fused<T, 21, float, false>(x, out, nullptr, sync,
+                                                      rows, lag, 0, 1.0f, vec,
+                                                      st);
+    case 22: return launch_fused<T, 22, float, false>(x, out, nullptr, sync,
+                                                      rows, lag, 0, 1.0f, vec,
+                                                      st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Rows of 2^L, 15 <= L <= 18: C = 2^(L - 14) blocks a row in clusters of C
@@ -681,29 +1015,41 @@ int launch(const void* x, void* out, int64_t rows, int log2d, float scale,
 // Any stale error is cleared first so that the code reports this launch
 // alone.  dtype: 0 = f32, 1 = bf16.
 
-// Rows of d = 2^log2d <= 2^18, whole (past 16,384 in clusters).  partial
-// != 0 (log2d = 14 only): the first launch of a longer row, over its low 14
-// index bits, which writes f32 to out, unscaled.
+// Rows of d = 2^log2d <= 2^22, whole (past 16,384 in clusters, past 2^18
+// in the fused kernel).  partial != 0 (log2d 20 to 22): the first launch
+// of a longer row, over segments of 2^log2d, which writes f32 to out,
+// unscaled.  The fused kernel (log2d >= 19) takes `sync`, 2 + 2 rows
+// zeroed words that it leaves zeroed, the lag of its high items behind its
+// low ones in rows, and for bf16 output (not partial) a ring of `slots`
+// f32 rows of d; the other kernels ignore the four.
 extern "C" int fwht_launch(const void* x, void* out, int64_t rows, int log2d,
-                           float scale, int dtype, int partial,
+                           float scale, int dtype, int partial, float* ring,
+                           unsigned* sync, int lag, int slots,
                            void* stream) {
   cudaGetLastError();
   if (rows <= 0) return 0;
-  if (log2d < 0 || log2d > 18 || (partial && log2d != 14))
+  if (log2d < 0 || log2d > 22 || (partial && log2d < 20) || dtype < 0
+      || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  // 16-byte runs need both pointers on 16-byte boundaries
   const bool vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
   if (partial && dtype == 0)
-    return launch_l<float, 14, float, false>(x, out, rows, scale, vec, st);
-  if (partial && dtype == 1)
-    return launch_l<__nv_bfloat16, 14, float, false>(x, out, rows, scale, vec,
-                                                     st);
+    return launch_segments<float>(x, out, sync, rows, log2d, lag, vec, st);
+  if (partial)
+    return launch_segments<__nv_bfloat16>(x, out, sync, rows, log2d, lag, vec,
+                                          st);
+  if (log2d > 18 && dtype == 0)
+    return launch_fused_l<float>(x, out, ring, sync, rows, log2d, lag, slots,
+                                 scale, vec, st);
+  if (log2d > 18)
+    return launch_fused_l<__nv_bfloat16>(x, out, ring, sync, rows, log2d, lag,
+                                         slots, scale, vec, st);
   if (dtype == 0) return launch<float>(x, out, rows, log2d, scale, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, out, rows, log2d, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(x, out, rows, log2d, scale, st);
 }
 
-// A further launch of rows longer than 2^18: the stages of index bits
+// A further launch of rows longer than 2^22: the stages of index bits
 // b0 .. b0 + k - 1 (b0 >= 14, 1 <= k <= 8) of the f32 tensor `in` of n
 // elements (rows times d), in place.  out_dtype -1: not the last launch
 // (out is in); 0 or 1: the last, which scales and writes f32 or bf16 to

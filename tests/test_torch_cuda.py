@@ -328,13 +328,14 @@ def test_fwht_misaligned_view(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,rows", [(1, 301), (2, 301), (1 << 15, 5),
                                     (1 << 16, 3), (1 << 19, 2), (1 << 20, 2),
-                                    (1 << 23, 1), (1 << 26, 1), (1 << 27, 1)])
+                                    (1 << 23, 1), (1 << 24, 1), (1 << 26, 1),
+                                    (1 << 27, 1)])
 def test_fwht_short_and_long_rows_match_plain(cuda, d, rows, dtype):
     """Rows of 1 and 2 (one launch, no stage or one) and rows past 16,384:
-    up to 2^18 one launch of the cluster kernel, past it the tile kernel
-    over the low 14 index bits, then one launch per group of up to 8 of the
-    rest (2^19 to 2^22: 2 launches, 2^23 to 2^30: 3), bitwise against the
-    plain version on the card."""
+    up to 2^18 one launch of the cluster kernel, up to 2^22 one of the
+    fused kernel, past it the fused kernel over segments of 2^20 to 2^22,
+    then one launch per group of up to 8 of the rest (2^23 to 2^30: 2
+    launches), bitwise against the plain version on the card."""
     from repro_torch.kernels.fwht import fwht_passes
 
     g = torch.Generator(device=cuda).manual_seed(d + rows)
@@ -368,6 +369,36 @@ def test_fwht_cluster_rows_match_plain(cuda, d, dtype, aligned):
     assert _build.LAUNCHES["fwht"] == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (rows, d)
     assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,rows", [
+    (1 << 19, 1), (1 << 19, 3), (1 << 19, 264), (1 << 20, 1), (1 << 20, 3),
+    (1 << 20, 264), (1 << 21, 1), (1 << 21, 3), (1 << 22, 1), (1 << 22, 3),
+    (1 << 22, 66)])
+def test_fwht_fused_rows_match_plain(cuda, d, rows, dtype, aligned):
+    """Rows of 2^19 to 2^22 take one launch of the fused kernel (low and
+    high items in ticket order, the intermediate f32 in the output or, for
+    bf16, in a ring of rows), bitwise against the plain version, on a
+    tensor on a 16-byte boundary and on a view one element past it; 1 and
+    3 rows fill no lag of rows, 264 and 66 reuse the ring's slots.  A
+    second call gives the same bits (the kernel left its counters 0)."""
+    g = torch.Generator(device=cuda).manual_seed(d + rows)
+    flat = torch.randn(rows * d + 1, generator=g, device=cuda).to(dtype)
+    x = (flat[:-1] if aligned else flat[1:]).view(rows, d)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    want = TRef.fwht_ref(x)
+    before = _build.LAUNCHES["fwht"]
+    got = TK.fwht(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fwht"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (rows, d)
+    assert torch.equal(_bits(got), _bits(want))
+    again = TK.fwht(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fwht"] == before + 2
+    assert torch.equal(_bits(again), _bits(got))
 
 
 @pytest.mark.parametrize("anchored", [False, True])
