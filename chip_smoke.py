@@ -31,7 +31,9 @@ nothing of the JAX package.  The script
    kernel in f32 at 128, 192, 256, 384 and 512 and in each type past 512;
    the split kernel in bf16 and f16 at 16 to 256 and in f32 at 64 to 256)
    spilled nothing, every instance of the three wgmma kernels shows HGMMA
-   and UTMALDG, every instance of the mma.sync kernel HMMA and UTMALDG,
+   and UTMALDG (the bf16/f16 one's with its registers a thread, consumer
+   warpgroups a block and blocks resident on an SM, as information),
+   every instance of the mma.sync kernel HMMA and UTMALDG,
    and every instance of the split kernel HMMA and LDGSTS (cp.async).  Then the shapes the reference's kernels
    do not take (``shape_kernel_checks``), each bitwise against its plain
    version at full width and timed: the encode, the single decode and the
@@ -226,7 +228,8 @@ nothing of the JAX package.  The script
    sequences of 4,096, the batch cut from 256; f32, causal and not), and
    granite-moe-1b-a400m training (16 heads x 64, K/V from 8 KV heads, 8
    sequences of ``train_4k``'s 4,096 tokens, the batch cut from 256 to 8;
-   f32, causal and not, and f16, causal); then small head dims (16, every
+   f32, causal and not, and f16, causal), and qwen3-32b's heads in f32
+   (one sequence of 4,096, causal); then small head dims (16, every
    smoke config's, and 32 in bf16, both built; 48 in f32, padded to 64)
    and shapes the reference sends to its plain version (Sq = Sk = 1,000,
    causal, and 8 queries over 4,096 keys, at qwen3-32b's heads in bf16;
@@ -239,12 +242,12 @@ nothing of the JAX package.  The script
    past 256 (16 heads, one sequence of 4,096, causal): 512 in bf16, f16
    and f32, and 320 in bf16 (padded to 384).  The bf16 and the f16 cases
    up to head dim 256 are the wgmma kernel's paths; the f32 ones up to 64
-   the f32 wgmma kernel's (``csrc/flash_attention.cu``), at 256 and 512
-   the mma.sync kernel's (``csrc/flash_attention_wide.cu``), each width
+   the f32 wgmma kernel's (``csrc/flash_attention.cu``), at 128, 256 and
+   512 the mma.sync kernel's (``csrc/flash_attention_wide.cu``), each width
    its own path, all three TF32 products on the tensor cores; past 256 the
    bf16 and f16 cases take the wide wgmma kernel
    (``csrc/flash_attention_wgmma_wide.cu``, one path for each case).  It times
-   the kernel (one call; under 5 ms also ``device_ms``, events around
+   the kernel (one call; under 10 ms also ``device_ms``, events around
    R >= 20 back-to-back calls), holds its output on the first 2 of BH
    against the plain version (which holds a (BH, Sq, Sk) f32 score
    tensor, so it runs 2 of BH at a time), times the plain version over
@@ -363,6 +366,9 @@ KERNEL_SOURCES = {
     "flash_attention_wide_f32_d256": (
         "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
         "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_wide_f32_d128": (
+        "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+        "src/repro/kernels/flash_attention.py:62"),
     "flash_attention_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:62"),
@@ -456,6 +462,9 @@ ATTENTION_CASES = (
      (True,)),
     ("recurrentgemma-9b train_4k", 16, 1, 256, 4_096, 8, "float32",
      (True, False)),
+    # qwen3-32b's heads in f32 at S 4,096: the mma.sync kernel at D 128
+    ("qwen3-32b heads, f32, S 4,096", 64, 8, 128, 4_096, 1, "float32",
+     (True,)),
     # small head dims: every smoke config's width and 32, both built in
     # bf16, and one that no config has (f32, padded to 64 in the wrapper)
     ("smoke width (D 16)", 4, 2, 16, 4_096, 8, "bfloat16", (True,)),
@@ -500,6 +509,7 @@ ATTENTION_KERNEL = {"bfloat16": "flash_attention_wgmma",
 ATTENTION_WIDE = {("bfloat16", 512): "flash_attention_wgmma_wide",
                   ("float16", 512): "flash_attention_wgmma_wide_f16",
                   ("bfloat16", 320): "flash_attention_wgmma_wide_d320",
+                  ("float32", 128): "flash_attention_wide_f32_d128",
                   ("float32", 256): "flash_attention_wide_f32_d256",
                   ("float32", 512): "flash_attention_wide_f32"}
 
@@ -535,7 +545,7 @@ TF32_ISSUED = 3
 # FlashAttention-3, 2024: 3.9 TFLOP/s of them on an H100 SXM)
 EXP_PER_CLOCK_SM = 16
 # attention's cases under this many ms also get a ``device_ms``
-DEVICE_MS_UNDER = 5.0
+DEVICE_MS_UNDER = 10.0
 # (rtol, atol) of the kernel against its plain version.  Both compute in
 # f32 and round once to the output type, so bf16 outputs differ by at most
 # one bf16 step, 2^-7 of the value (rtol 1e-2 leaves a margin of 1.28),
@@ -668,22 +678,30 @@ def attention_sass(_build) -> dict:
     HMMA and UTMALDG, the split kernel's HMMA and LDGSTS (cp.async), and
     none of the five libraries may have spilled (0 spill-store bytes in
     ptxas's report of this build, where this process built it, and no
-    local memory in ``cuobjdump -res-usage``)."""
+    local memory in ``cuobjdump -res-usage``).  The bf16/f16 wgmma
+    kernel's instances also report, as information, what its library
+    states of them (``flash_attention.wgmma_residency``): blocks resident
+    on an SM, consumer warpgroups a block, registers a thread."""
+    import torch
+
     from repro_torch.kernels.flash_attention import (F32_HEAD_DIMS,
                                                      F32_WGMMA_HEAD_DIM,
                                                      GROUP, HEAD_DIMS,
-                                                     WIDE_HEAD_DIMS)
+                                                     WIDE_HEAD_DIMS,
+                                                     wgmma_residency)
 
     halves = ("13__nv_bfloat16", "6__half")
     # by their mangled names: the f32 wgmma kernel (D 64 alone), the bf16
-    # and f16 one at each (input type, head dim), the wide wgmma kernel at
-    # each (input type, half of the head dim), the mma.sync kernel at each
-    # (input type, output columns of its block: f32 at each of its head
-    # dims, every type at GROUP past them)
+    # and f16 one at each (input type, head dim; up to 64 its small-D
+    # kernel), the wide wgmma kernel at each (input type, half of the head
+    # dim), the mma.sync kernel at each (input type, output columns of its
+    # block: f32 at each of its head dims, every type at GROUP past them)
+    wgmma = {f"flash_wgmma_{'small_' if d <= 64 else ''}kernelI{t}Li{d}E":
+             (dt, d) for t, dt in zip(halves, (torch.bfloat16, torch.float16))
+             for d in HEAD_DIMS}
     instances = {
         "flash_attention": ["flash_tf32_kernel"],
-        "flash_attention_wgmma": [f"flash_wgmma_kernelI{t}Li{d}E"
-                                  for t in halves for d in HEAD_DIMS],
+        "flash_attention_wgmma": list(wgmma),
         "flash_attention_wgmma_wide": [
             f"flash_wgmma_wide_kernelI{t}Li{d // 2}E"
             for t in halves for d in WIDE_HEAD_DIMS],
@@ -720,6 +738,10 @@ def attention_sass(_build) -> dict:
                   f"{fn}'s SASS has no {mma} or no {load}: {c}")
             check(c.get("local") == 0 and not c["spill_store_bytes"],
                   f"{lib} {fn} spilled: {c}")
+            if inst in wgmma:
+                (c["blocks_per_sm"], c["consumer_warpgroups"],
+                 c["regs_per_thread"]) = wgmma_residency(
+                     *wgmma[inst], torch.cuda.current_device())
             out[inst] = c
     return out
 

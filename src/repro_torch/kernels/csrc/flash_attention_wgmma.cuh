@@ -135,11 +135,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
   "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-#define FA_SS_N128(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
-  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
 #define FA_SS_N32(TY) "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
   "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
@@ -207,19 +202,6 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                  : "l"(a), "l"(b), "r"(accumulate));
   else
     asm volatile(FA_SS_N64("bf16") : FA_D32(d, 0)
-                 : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// S (64 x 128, f32) = A (64 x 16, shared) . B (16 x 128, shared), both
-// K-major
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  if constexpr (kF16<T>)
-    asm volatile(FA_SS_N128("f16") : FA_D32(d, 0), FA_D32(d, 32)
-                 : "l"(a), "l"(b), "r"(accumulate));
-  else
-    asm volatile(FA_SS_N128("bf16") : FA_D32(d, 0), FA_D32(d, 32)
                  : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -299,11 +281,13 @@ template <> struct Elem<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  // a bf16 is the top half of the f32 of the same value, so hi's two
+  // values come back as f32 by a shift and a mask
   static __device__ __forceinline__ void split(float p0, float p1,
                                                uint32_t& hi, uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-    hi = *reinterpret_cast<const uint32_t*>(&h);
-    lo = pack(__fsub_rn(p0, __low2float(h)), __fsub_rn(p1, __high2float(h)));
+    hi = pack(p0, p1);
+    lo = pack(__fsub_rn(p0, __uint_as_float(hi << 16)),
+              __fsub_rn(p1, __uint_as_float(hi & 0xffff0000u)));
   }
 };
 template <> struct Elem<__half> {
@@ -352,6 +336,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, ah, bh);
 }
 
+// exp2(x) on the special-function unit alone (one MUFU.EX2; exp2f adds a
+// range test and two multiplies for results below 2^-126): relative error
+// about 2^-22, results below 2^-126 flushed to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // The online-softmax step of one key tile on a thread's N S fragments
 // (rows r0, r0 + 8; keys key0 + 8 j + {0, 1}, j < N / 4; N = 64 for a
 // 128-key tile, 32 for a 64-key one, 16 for a 32-key one): p = exp2(s *
@@ -359,8 +352,10 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
 // m) into sc, the running max m (log2 domain) and this thread's part of
 // the row sums l updated, and alpha = exp2(m_old - m) for O.  The max is
 // taken over the raw scores, which scale_log2 > 0 leaves in order.  MASK:
-// keys past Sk or, where causal, past a row's position get p = 0.
-template <bool MASK, int N>
+// keys past Sk or, where causal, past a row's position get p = 0.  FTZ:
+// the exponentials by exp2_ftz (the p and alpha below 2^-126 that it
+// flushes are below 2^-126 of a row sum of at least 1).
+template <bool MASK, int N, bool FTZ = false>
 __device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              int r0, int key0, int sk,
@@ -384,7 +379,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     const float m_new = fmaxf(m[r], __fmul_rn(mx[r], scale_log2));
-    alpha[r] = exp2f(__fsub_rn(m[r], m_new));
+    const float dm = __fsub_rn(m[r], m_new);
+    alpha[r] = FTZ ? exp2_ftz(dm) : exp2f(dm);
     m[r] = m_new;
     neg_m[r] = -m_new;
   }
@@ -392,7 +388,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m)[2],
   for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(__fmaf_rn(sc[4 * j + e], scale_log2, neg_m[e >> 1]));
+      const float x = __fmaf_rn(sc[4 * j + e], scale_log2, neg_m[e >> 1]);
+      const float p = FTZ ? exp2_ftz(x) : exp2f(x);
       sc[4 * j + e] = p;
       rs[e >> 1] = __fadd_rn(rs[e >> 1], p);
     }

@@ -14,7 +14,8 @@ Which kernel takes a call, by head dim D and input type:
   block computes the scores over all of D).
 - bf16 and f16 up to D 256: ``csrc/flash_attention_wgmma.cu`` (wgmma on
   the tensor cores, K/V by TMA, P split into two terms of the input type),
-  built for D 16, 32, 64, 128, 192 and 256.
+  built for D 16, 32, 64, 128, 192 and 256; up to D 64 a block holds
+  more consumer warpgroups (:func:`wgmma_residency`).
 - bf16 and f16 in (256, 512]: ``csrc/flash_attention_wgmma_wide.cu`` (the
   same numerics, the D columns split between two consumer warpgroups that
   share each score), built for D 384 and 512; past 512 the f32 kernel's
@@ -139,6 +140,27 @@ def _split_limits(dtype: torch.dtype, d: int, index: int
     props = torch.cuda.get_device_properties(index)
     return (min(SPLIT_BLOCKS_PER_SM[dtype], blocks.value)
             * props.multi_processor_count, max_splits.value, align.value)
+
+
+@functools.cache
+def wgmma_residency(dtype: torch.dtype, d: int, index: int
+                    ) -> "tuple[int, int, int]":
+    """(blocks resident on one SM, consumer warpgroups a block, registers
+    a thread) of the bf16/f16 wgmma kernel's instance at (``dtype``, built
+    head dim ``d``) on card ``index``, as its library states them.  Raises
+    for another dtype or head dim before it loads the library."""
+    if dtype not in (torch.bfloat16, torch.float16) or d not in HEAD_DIMS:
+        raise ValueError(f"the wgmma kernel is built for bf16 and f16 at "
+                         f"head dims {HEAD_DIMS}, not {dtype} at {d}")
+    lib = _KERNELS[dtype][0]
+    fn = _build.load(lib).flash_attention_wgmma_residency
+    fn.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 3
+    fn.restype = _I
+    blocks, consumers, regs = _I(0), _I(0), _I(0)
+    with torch.cuda.device(index):
+        _build.check(fn(int(dtype == torch.float16), d, ctypes.byref(blocks),
+                        ctypes.byref(consumers), ctypes.byref(regs)), lib)
+    return blocks.value, consumers.value, regs.value
 
 
 # each (device, stream)'s scratch and counters of the split kernel: the

@@ -330,3 +330,17 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     shifted = torch.zeros(2 * 256 * 64 + 1)[1:].view(2, 256, 64)
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention_cuda(q, shifted, v, causal=False, bq=256, bk=256)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 48),
+                                     (torch.float16, 320),
+                                     (torch.bfloat16, 512)])
+def test_wgmma_residency_takes_only_built_instances(dtype, d):
+    """``wgmma_residency`` reads the bf16/f16 wgmma kernel's instances
+    alone (bf16 and f16 at 16, 32, 64, 128, 192 and 256): any other type
+    or head dim raises before the library is loaded, with or without a
+    card."""
+    from repro_torch.kernels.flash_attention import wgmma_residency
+
+    with pytest.raises(ValueError, match="built for bf16 and f16"):
+        wgmma_residency(dtype, d, 0)

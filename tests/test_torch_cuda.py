@@ -650,6 +650,91 @@ def test_flash_attention_split_limits(cuda, dtype):
         assert blocks >= sms and (max_splits, align) == want, d
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_wgmma_residency(cuda, dtype):
+    """The wgmma kernel's library states each instance's residency: up to
+    head dim 32 at least four consumer warpgroups of 64 query rows on each
+    SM (twice the two of one 384-thread block with a producer warpgroup),
+    at 64 at least three (four spill there), above it one such block an
+    SM; every instance within 255 registers a thread."""
+    from repro_torch.kernels import flash_attention as FA
+
+    for d in FA.HEAD_DIMS:
+        blocks, consumers, regs = FA.wgmma_residency(dtype, d,
+                                                     cuda.index or 0)
+        if d <= 64:
+            want = 4 if d <= 32 else 3
+            assert blocks * consumers >= want, (d, blocks, consumers)
+        else:
+            assert (blocks, consumers) == (1, 2), (d, blocks, consumers)
+        assert 0 < regs <= 255, (d, regs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_small_head_dims_same_bits(cuda, dtype, d, causal):
+    """bf16 and f16 at head dims 16, 32 and 64 (BH 3, Sq = Sk = 1,000:
+    ragged query and key tiles) give the same bits on two calls, within
+    the limits of ``test_flash_attention_matches_plain``."""
+    q, k, v = (a.to(dtype).to(cuda) for a in _qkv(3, 1000, 1000, d,
+                                                   seed=d + 1))
+    got = TK.flash_attention(q, k, v, causal=causal)
+    again = TK.flash_attention(q, k, v, causal=causal)
+    want = TRef.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    rtol, atol = _FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("bh,sq,sk,causal", [(1, 1, 1, True),
+                                             (1, 64, 64, True),
+                                             (1, 200, 4096, False),
+                                             (1, 17, 4096, False),
+                                             (2, 256, 256, True),
+                                             (3, 300, 70, False),
+                                             (5, 1000, 1000, True)])
+def test_flash_attention_small_grids(cuda, dtype, d, bh, sq, sk, causal):
+    """Grids of fewer blocks than the card has SMs at head dims 16, 32 and
+    64: one query tile of BH 1 (one row, one block of 64 rows, 200 rows
+    over 4,096 keys, 17 rows: past the split kernel's 16), a block's rows
+    past Sq, keys fewer than the rows; one launch, against the plain
+    version at the limits of ``test_flash_attention_matches_plain``."""
+    q, k, v = (a.to(dtype).to(cuda) for a in _qkv(bh, sq, sk, d,
+                                                   seed=bh + sq + sk))
+    before = _build.LAUNCHES["flash_attention"]
+    got = TK.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want = TRef.flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = _FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_flash_attention_small_long_causal(cuda, dtype, d):
+    """Causal S = 4,096 (BH 2) at head dims 16, 32 and 64: 64 key tiles a
+    row at the end, every ring stage reused many times; against the plain
+    version on the card at the limits of the short cases."""
+    q, k, v = (a.to(dtype).to(cuda) for a in _qkv(2, 4096, 4096, d,
+                                                   seed=4096 + d))
+    got = TK.flash_attention(q, k, v, causal=True)
+    want = TRef.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = _FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
 def test_flash_attention_raises_outside_the_rules(cuda):
     """A dtype no kernel is built for raises on the card, at a head dim
     past 256 too; nothing launches.  D 320 launches a wide kernel."""
