@@ -82,18 +82,21 @@ class AggClient:
             return cached
         q = wire.q_at_attempt(self.spec.cfg.q, attempt)
         bucket = self.spec.cfg.bucket
+        rid, cid = self.spec.round_id, self.client_id
         if self._check is None:
             words, k = K.lattice_encode(self._xflat, self._u, self._sides,
                                         q=q, return_coords=True,
                                         anchor=self._aflat, bucket=bucket)
-            self._check = int(ED.coord_checksum(
-                k, rounds.checksum_weights(self.spec, self.device)))
+            with _obs.span("client.checksum", round=rid, client=cid):
+                self._check = int(ED.coord_checksum(
+                    k, rounds.checksum_weights(self.spec, self.device)))
             del k
         else:
             words = K.lattice_encode(self._xflat, self._u, self._sides, q=q,
                                      anchor=self._aflat, bucket=bucket)
         nw = L.packed_len(self.spec.padded, L.bits_for_q(q))
-        host = words[:nw].cpu().numpy().view(np.uint32)
+        with _obs.span("client.d2h", round=rid, client=cid):
+            host = words[:nw].cpu().numpy().view(np.uint32)
         self._words[attempt] = (q, host)
         return q, host
 

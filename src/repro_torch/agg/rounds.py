@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+import repro_torch.obs as _obs
 from repro_torch import random as _random
 from repro_torch import resolve_device
 from repro_torch.agg.transport import frame as W
@@ -43,21 +44,24 @@ def round_key(spec: W.RoundSpec):
 
 def dither(spec: W.RoundSpec, device=None) -> torch.Tensor:
     """Shared lattice offset u ~ U[-1/2, 1/2), shaped (nb, bucket)."""
-    return L.shared_offset(round_key(spec), (spec.nb, spec.cfg.bucket),
-                           device=device)
+    with _obs.span("draw.dither", round=spec.round_id):
+        return L.shared_offset(round_key(spec), (spec.nb, spec.cfg.bucket),
+                               device=device)
 
 
 def checksum_weights(spec: W.RoundSpec, device=None) -> torch.Tensor:
     """Shared odd uint32 weights of the §5 checksum (int32 bit view),
     (padded,)."""
-    return ED.checksum_weights(_random.fold_in(round_key(spec), 1),
-                               spec.padded, device=device)
+    with _obs.span("draw.weights", round=spec.round_id):
+        return ED.checksum_weights(_random.fold_in(round_key(spec), 1),
+                                   spec.padded, device=device)
 
 
 def rotation_diag(spec: W.RoundSpec, device=None) -> torch.Tensor:
     """Shared ±1 Hadamard diagonal for the per-bucket HD rotation."""
-    return R.rotation_keypair(_random.PRNGKey(spec.rot_seed),
-                              spec.cfg.bucket, device=device)
+    with _obs.span("draw.rotation", round=spec.round_id):
+        return R.rotation_keypair(_random.PRNGKey(spec.rot_seed),
+                                  spec.cfg.bucket, device=device)
 
 
 def as_f32(v, device) -> torch.Tensor:

@@ -33,14 +33,14 @@ def chunk_frames(h0: F.FrameHeader, body: bytes, mtu: int) -> "list[bytes]":
     disagree with the body actually framed.
     """
     nc = WA.n_chunks(len(body), mtu)
-    pcrc = zlib.crc32(body)
-    frames = []
-    for i in range(nc):
-        off, ln = WA.chunk_span(len(body), mtu, i)
-        h = dataclasses.replace(h0, n_chunks=nc, chunk_index=i,
-                                payload_crc=pcrc)
-        frames.append(F.encode_frame(h, body[off:off + ln]))
-    return frames
+    with _obs.span("frame.crc", round=h0.round_id, client=h0.client_id):
+        pcrc = zlib.crc32(body)
+    if _obs.metrics_enabled():
+        _obs.counter("frame_crc_bytes").inc(len(body))
+    hs = [dataclasses.replace(h0, n_chunks=nc, chunk_index=i,
+                              payload_crc=pcrc) for i in range(nc)]
+    return F.encode_frames(hs, body, [WA.chunk_span(len(body), mtu, i)
+                                      for i in range(nc)])
 
 
 def encode_chunks(spec: F.RoundSpec, client_id: int, attempt: int, q: int,

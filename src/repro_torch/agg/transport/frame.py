@@ -383,9 +383,37 @@ def _pack_header(h: FrameHeader) -> bytes:
 
 def encode_frame(h: FrameHeader, chunk: bytes) -> bytes:
     """Serialize one chunk-carrying frame (header + CRC + chunk bytes)."""
-    head0 = _pack_header(h)
-    crc = zlib.crc32(chunk, zlib.crc32(head0))
-    return head0 + struct.pack("<I", crc) + chunk
+    return encode_frames([h], chunk, [(0, len(chunk))])[0]
+
+
+def encode_frames(hs: "list[FrameHeader]", body: bytes,
+                  spans: "list[tuple[int, int]]") -> "list[bytes]":
+    """Serialize the frames that carry ``body[off:off + ln]`` under
+    ``hs[i]`` for the i-th ``(off, ln)`` of ``spans``: each the same bytes
+    as ``encode_frame(hs[i], body[off:off + ln])``.  Every frame's CRC is
+    taken first, over a view of the body, and then every frame is copied
+    out, so one call is one ``frame.crc`` and one ``frame.copy`` span
+    however many chunks it frames.  Counts the bytes hashed and copied
+    (``frame_crc_bytes``, ``frame_copy_bytes``) when metrics are on."""
+    heads = [_pack_header(h) for h in hs]
+    rid, cid = hs[0].round_id, hs[0].client_id
+    with _obs.span("frame.crc", round=rid, client=cid), \
+            memoryview(body) as view:
+        crcs = [zlib.crc32(view[off:off + ln], zlib.crc32(head))
+                for head, (off, ln) in zip(heads, spans)]
+    with _obs.span("frame.copy", round=rid, client=cid):
+        # a frame of the whole body takes it as it is: no slice, no copy
+        frames = [b"".join((head, struct.pack("<I", crc),
+                            body if ln == len(body)
+                            else body[off:off + ln]))
+                  for head, crc, (off, ln) in zip(heads, crcs, spans)]
+    if _obs.metrics_enabled():
+        _obs.counter("frame_crc_bytes").inc(
+            sum(len(head) + ln for head, (_, ln) in zip(heads, spans)))
+        _obs.counter("frame_copy_bytes").inc(
+            sum(len(f) for f in frames)
+            + sum(ln for _, ln in spans if ln != len(body)))
+    return frames
 
 
 _PEEK = struct.Struct("<4sHHII")      # magic | version | flags | round | cid
@@ -529,14 +557,22 @@ def build_payload(spec: RoundSpec, client_id: int, attempt: int, q: int,
         raise ValueError(f"n_summed must be >= 1, got {n_summed}")
     words = np.ascontiguousarray(np.asarray(words, dtype=np.uint32))
     sides = np.ascontiguousarray(np.asarray(sides, dtype=np.float32))
-    body = words.tobytes() + sides.tobytes()
+    with _obs.span("frame.copy", round=spec.round_id, client=client_id):
+        body = words.tobytes() + sides.tobytes()
+    with _obs.span("frame.crc", round=spec.round_id, client=client_id):
+        pcrc = zlib.crc32(body)
+    if _obs.metrics_enabled():
+        # tobytes() copies the body once, the concatenation once more
+        _obs.counter("frame_body_bytes").inc(len(body))
+        _obs.counter("frame_copy_bytes").inc(2 * len(body))
+        _obs.counter("frame_crc_bytes").inc(len(body))
     h = FrameHeader(round_id=spec.round_id, client_id=client_id,
                     attempt=attempt, q=q, d=spec.d, bucket=spec.cfg.bucket,
                     seed=spec.seed, rot_seed=spec.rot_seed,
                     n_words=words.shape[0], nb=sides.shape[0],
                     check=int(check) & 0xFFFFFFFF,
                     anchor_digest=spec.anchor_digest & 0xFFFFFFFF,
-                    n_chunks=1, chunk_index=0, payload_crc=zlib.crc32(body),
+                    n_chunks=1, chunk_index=0, payload_crc=pcrc,
                     rotate=spec.cfg.rotate, anchored=spec.anchored,
                     n_summed=int(n_summed))
     return h, body

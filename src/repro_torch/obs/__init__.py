@@ -1,7 +1,8 @@
 """repro_torch.obs — unified observability for kernels → transport → engine → tree.
 
-Zero-dependency (stdlib-only) metrics + tracing + flight recorder +
-exporters, OFF by default.  The switchboard:
+Zero-dependency (stdlib-only; ``span`` imports ``torch.profiler`` once
+tracing is on) metrics + tracing + flight recorder + exporters, OFF by
+default.  The switchboard:
 
     import repro_torch.obs as obs
     obs.enable()                      # metrics + tracing + flight recorder
@@ -19,6 +20,13 @@ always kept those counts — ``scope()`` merely decides whether they land in
 the process registry (exported) or in a detached private registry
 (invisible, exactly the old cost).
 
+Spans at the work: ``with obs.span("frame.crc", round=rid, client=cid):``
+nests a span under the innermost ``obs.span`` open on the thread and, while
+tracing is on, opens a ``torch.profiler.record_function`` range named
+``repro:<name>`` around the same work, so a profiler trace holds the
+program's spans on the clock of the device's events.  Off, it is one
+boolean check returning a shared null context.
+
 Clock injection: ``enable(clock=time.monotonic)`` stamps spans with wall
 time; with no clock the tracer runs on virtual time fed by the open-loop
 sim's event loop (``tracer().feed_time(t)``), so exported traces share the
@@ -26,6 +34,7 @@ event-time axis of the latency metrics.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Callable, Optional
 
@@ -133,6 +142,48 @@ def scope(prefix: str, **labels) -> Scope:
     if _metrics_on:
         return _registry.scope(prefix, inst=next(_scope_serial), **labels)
     return Registry().scope(prefix, **labels)
+
+
+# prefix of the profiler ranges that obs.span opens
+PREFIX = "repro:"
+_NULL_SPAN = contextlib.nullcontext()
+
+
+class _ProgramSpan:
+    """A span of the tracer's span stack and the profiler range of the
+    same name, opened and closed together."""
+    __slots__ = ("name", "attrs", "sp", "rf")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        self.rf = record_function(PREFIX + self.name)
+        self.rf.__enter__()
+        self.sp = _tracer.open(self.name, **self.attrs)
+        return self.sp
+
+    def __exit__(self, *exc) -> bool:
+        _tracer.close(self.sp)
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, round: Optional[int] = None,
+         client: Optional[int] = None):
+    """A context manager around one piece of work, tagged with its round
+    id (and client id where known).  With tracing off it is the shared
+    null context: one boolean check, no allocation (hence named
+    parameters and no ``**attrs``).  With tracing on it records a
+    :class:`Span` under the innermost ``span`` open on the thread and
+    opens the profiler range ``repro:<name>`` around the work."""
+    if not _trace_on:
+        return _NULL_SPAN
+    attrs = {} if round is None else {"round": round}
+    if client is not None:
+        attrs["client"] = client
+    return _ProgramSpan(name, attrs)
 
 
 def trigger(reason: str, at: float = 0.0, **attrs):

@@ -30,6 +30,7 @@ smoke.
 from __future__ import annotations
 
 import itertools
+import threading
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -69,6 +70,10 @@ class Tracer:
     the span ends so late children (a straggler's seal after the round
     span closed) still attach to the right parent.
 
+    ``open(name, ...)`` / ``close(span)`` nest instead of addressing: the
+    parent of an opened span is the innermost span the same thread opened
+    and has not closed (the stack behind :func:`repro_torch.obs.span`).
+
     If ``sink`` is set (the flight recorder's ``record``), every completed
     or instant span is also streamed there.
     """
@@ -84,6 +89,7 @@ class Tracer:
         self._vt = 0.0                       # fed virtual time (monotonic)
         self._by_key: dict = {}              # key -> Span (latest per key)
         self._ids = itertools.count(1)
+        self._local = threading.local()      # .stack: this thread's open()
 
     # -- time ------------------------------------------------------------
     def now(self) -> float:
@@ -144,6 +150,31 @@ class Tracer:
                 self.sink(sp)
         return sp
 
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def open(self, name: str, **attrs) -> Optional[Span]:
+        """Open a span under the innermost span this thread opened and has
+        not closed; None (and nothing recorded) past ``max_spans``."""
+        stack = self._stack()
+        top = stack[-1] if stack else None
+        sp = self.begin(name, parent=top.span_id if top is not None else None,
+                        **attrs)
+        stack.append(sp)
+        return sp
+
+    def close(self, sp: Optional[Span]) -> None:
+        """Close the innermost span :meth:`open` gave this thread (a
+        :meth:`reset` in between has emptied the stack already)."""
+        stack = self._stack()
+        if stack:
+            stack.pop()
+        if sp is not None:
+            self.end(sp)
+
     def get(self, key) -> Optional[Span]:
         return self._by_key.get(key)
 
@@ -156,6 +187,7 @@ class Tracer:
         self._vt = 0.0
         self._by_key = {}
         self._ids = itertools.count(1)
+        self._local = threading.local()
 
 
 def _under(tracer: Tracer, root_id: int) -> "list[Span]":
